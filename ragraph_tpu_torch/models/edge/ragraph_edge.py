@@ -1,0 +1,508 @@
+"""The edge (recommendation) model family, inference part (counterpart of
+``ragraph_tpu/models/edge/ragraph_edge.py``).
+
+``TemporalLightGCN`` is the shared engine of ``LightGCNEdge``, ``GraphPro``
+and ``RAGraphEdge``: a temporal LightGCN whose phases follow the reference
+lifecycle (pretrain / for_tune / vanilla / finetune). ``RAGraphEdge`` adds
+the retrieval library (:meth:`TemporalLightGCN.make_resource_graph`) and the
+RAG fusion of its cosine top-k (:meth:`TemporalLightGCN._fuse_rag`).
+
+Parameters are a plain dict of tensors with the JAX package's keys
+(``user_embedding``, ``item_embedding``, ``gating_weight``, ``gating_bias``),
+so tables trained by either package serve the other
+(:func:`ragraph_tpu_torch.convert.params_from_jax`). The model runs on the
+device of its graph arrays. Where the JAX package asks "is the backend a
+TPU", this one asks "is the graph on CUDA": on the CPU both pick the
+scatter reduction and f32.
+
+Not ported yet (ROADMAP.md): training (``cal_loss``, dropout, noise), LoRA,
+the huge-k threshold fusion and the multi-chip paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from ragraph_tpu_torch.data.edgelist import EdgeDataset
+from ragraph_tpu_torch.device import resolve_device
+from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig,
+                                                lightgcn_propagate,
+                                                relative_time_encoding)
+from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
+from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
+from ragraph_tpu_torch.ops.similarity import l2_normalize
+from ragraph_tpu_torch.ops.topk import cosine_topk, topk_gather
+from ragraph_tpu_torch.rag.augmentation import augment_features
+
+# _fuse_rag needs the huge-k threshold branch (not ported) when
+# k * emb_size exceeds this, as in the JAX package.
+_BIG_K_ELEMS = 1 << 20
+
+# Per-dataset RAG knobs (reference modules/RAGraph.py:33-85).
+EDGE_DATASET_CONFIGS = {
+    "amazon": dict(retrieve_weight=0.3,
+                   vanilla=dict(rag_chunk=32768, retrieve_num=50,
+                                num_augment_scale=0, inverse_frac=0.01),
+                   finetune=dict(rag_chunk=4096, retrieve_num=10,
+                                 noise_retrieve_num=1, num_augment_scale=0,
+                                 num_inverse_sample=0)),
+    "koubei": dict(retrieve_weight=0.3,
+                   vanilla=dict(rag_chunk=512, retrieve_num=100000,
+                                num_augment_scale=1, inverse_frac=0.01),
+                   finetune=dict(rag_chunk=4096, retrieve_num=20,
+                                 noise_retrieve_num=1, num_augment_scale=0,
+                                 num_inverse_sample=0)),
+    "taobao": dict(retrieve_weight=0.3,
+                   vanilla=dict(rag_chunk=512, retrieve_num=100000,
+                                num_augment_scale=1, inverse_frac=0.01),
+                   finetune=dict(rag_chunk=4096, retrieve_num=20,
+                                 noise_retrieve_num=1, num_augment_scale=0,
+                                 num_inverse_sample=0)),
+}
+
+_TENSOR_FIELDS = ("senders", "receivers", "edge_norm", "edge_times",
+                  "recv_indptr", "send_perm", "send_indptr", "recv_of_send",
+                  "edge_norm_send", "time_norm", "time_norm_send")
+
+
+@dataclasses.dataclass
+class EdgeGraphArrays:
+    """The bidirectional interaction graph as tensors on one device.
+
+    Receiver-sorted edges with CSR bounds, plus the sender-order arrays of
+    the fused propagation's backward and the static per-destination time
+    softmax, computed exactly in f64 on the host.
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    edge_norm: torch.Tensor
+    edge_times: torch.Tensor
+    num_users: int
+    num_items: int
+    recv_indptr: torch.Tensor | None = None
+    send_perm: torch.Tensor | None = None
+    send_indptr: torch.Tensor | None = None
+    recv_of_send: torch.Tensor | None = None
+    edge_norm_send: torch.Tensor | None = None
+    time_norm: torch.Tensor | None = None
+    time_norm_send: torch.Tensor | None = None
+
+    @classmethod
+    def from_dataset(cls, ds: EdgeDataset,
+                     device: str | torch.device = "cuda") -> "EdgeGraphArrays":
+        dev = resolve_device(device)
+        send = np.asarray(ds.senders)
+        recv = np.asarray(ds.receivers)
+        norm = np.asarray(ds.edge_norm)
+        n_nodes = ds.num_users + ds.num_items
+        perm = np.argsort(send, kind="stable").astype(np.int32)
+        sip = np.zeros(n_nodes + 1, np.int32)
+        sip[1:] = np.cumsum(np.bincount(send, minlength=n_nodes))
+
+        # static time softmax over the full graph, exact in f64; zero-weight
+        # padding edges are left out
+        t = np.asarray(ds.edge_times_bi, np.float64)
+        realm = norm > 0
+        tr = t[realm] if realm.any() else t
+        tmin = tr.min() if tr.size else 0.0
+        span = max((tr.max() - tmin), 1e-12) if tr.size else 1.0
+        e = np.where(realm, np.exp((t - tmin) / span), 0.0)
+        denom = np.bincount(recv, weights=e, minlength=n_nodes)
+        tn = np.where(realm, e / np.maximum(denom[recv], 1e-300),
+                      0.0).astype(np.float32)
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        indptr = getattr(ds, "recv_indptr", None)
+        return cls(senders=put(send), receivers=put(recv),
+                   edge_norm=put(norm), edge_times=put(ds.edge_times_bi),
+                   num_users=ds.num_users, num_items=ds.num_items,
+                   recv_indptr=put(indptr) if indptr is not None else None,
+                   send_perm=put(perm), send_indptr=put(sip),
+                   recv_of_send=put(recv[perm].astype(np.int32)),
+                   edge_norm_send=put(norm[perm]),
+                   time_norm=put(tn), time_norm_send=put(tn[perm]))
+
+    def to(self, device: str | torch.device) -> "EdgeGraphArrays":
+        dev = resolve_device(device)
+        return dataclasses.replace(self, **{
+            f: getattr(self, f).to(dev) for f in _TENSOR_FIELDS
+            if getattr(self, f) is not None})
+
+    @property
+    def device(self) -> torch.device:
+        return self.senders.device
+
+    @property
+    def num_nodes(self) -> int:
+        return self.num_users + self.num_items
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.senders.shape[0])
+
+
+def _xavier(shape: tuple, generator: torch.Generator,
+            device: torch.device) -> torch.Tensor:
+    """Glorot-uniform init (fan-in ``shape[-2]``, fan-out ``shape[-1]``)."""
+    bound = math.sqrt(6.0 / (shape[-2] + shape[-1]))
+    u = torch.rand(shape, generator=generator, device=device)
+    return (2.0 * u - 1.0) * bound
+
+
+class TemporalLightGCN:
+    """Shared engine for LightGCN / GraphPro / RAGraph-edge.
+
+    Flags: ``use_time`` (GraphPro/RAGraph) and ``use_rag`` (RAGraph only).
+    """
+
+    use_time: bool = True
+    use_rag: bool = False
+
+    def __init__(self, cfg: EdgeModelConfig, graph: EdgeGraphArrays,
+                 phase: str = "pretrain"):
+        self.cfg = cfg
+        self.graph = graph
+        self.phase = phase
+        self.resource_keys = None    # (R, E) library, not parameters
+        self.resource_values = None
+
+    def _segsum_impl(self, graph: EdgeGraphArrays | None = None) -> str:
+        """Pick the propagation backend, by the JAX package's rule with
+        "on a TPU" read as "on CUDA"."""
+        g = self.graph if graph is None else graph
+        want = self.cfg.segsum_impl
+        on_cuda = g.device.type == "cuda"
+        have_sorted = g.recv_indptr is not None
+        have_fused = (have_sorted and g.send_indptr is not None
+                      and g.recv_of_send is not None
+                      and g.edge_norm_send is not None)
+        if want == "fused" and have_fused:
+            return "fused"
+        if want == "auto" and on_cuda and have_fused:
+            return "fused"
+        if want in ("sorted", "fused") and on_cuda and have_sorted:
+            return "sorted"
+        if want == "auto" and on_cuda and have_sorted:
+            return "sorted"
+        return "scatter"
+
+    def _bf16(self) -> bool:
+        d = self.cfg.propagate_dtype
+        return d == "bf16" or (d == "auto"
+                               and self.graph.device.type == "cuda")
+
+    def _edge_weights(self, g, edge_mask, edge_mask_send,
+                      time_scale: float = 1.0, max_time_step=None):
+        """Per-edge weights in receiver order (and in sender order when the
+        fused path applies). Returns ``(weights, w_send, impl)``.
+
+        Static time mode folds in the precomputed time softmax; otherwise
+        the softmax is recomputed over the live edges, which exists only in
+        receiver order and so leaves the fused backend.
+        """
+        cfg = self.cfg
+        impl = self._segsum_impl(g)
+        static_time = (cfg.time_mode == "static"
+                       and g.time_norm is not None
+                       and max_time_step is None)
+        downgrade = ("sorted" if g.device.type == "cuda"
+                     and g.recv_indptr is not None else "scatter")
+        if impl == "fused" and (edge_mask is not None
+                                and edge_mask_send is None):
+            impl = downgrade
+        if impl == "fused" and self.use_time and not static_time:
+            impl = downgrade
+
+        weights = g.edge_norm
+        w_send = g.edge_norm_send if impl == "fused" else None
+        if self.use_time and static_time:
+            weights = weights * 0.5 + g.time_norm * (0.5 * time_scale)
+            if impl == "fused":
+                w_send = w_send * 0.5 + g.time_norm_send * (0.5 * time_scale)
+            if edge_mask is not None:
+                weights = torch.where(edge_mask, weights, 0.0)
+                if impl == "fused":
+                    w_send = torch.where(edge_mask_send, w_send, 0.0)
+        else:
+            if edge_mask is not None:
+                weights = torch.where(edge_mask, weights, 0.0)
+                if impl == "fused":
+                    w_send = torch.where(edge_mask_send, w_send, 0.0)
+            if self.use_time:
+                # zero-weight padding edges get no softmax mass
+                pad_valid = g.edge_norm > 0
+                tmask = (pad_valid if edge_mask is None
+                         else pad_valid & edge_mask)
+                tn = relative_time_encoding(
+                    g.edge_times, g.receivers, g.num_nodes,
+                    edge_mask=tmask, max_step=max_time_step)
+                weights = weights * 0.5 + tn * 0.5
+        return weights, w_send, impl
+
+    def _propagate_layers(self, g, all_emb, weights, w_send, impl):
+        return lightgcn_propagate(all_emb, g.senders, g.receivers, weights,
+                                  g.num_nodes, self.cfg.num_layers,
+                                  recv_indptr=g.recv_indptr, impl=impl,
+                                  weights_send=w_send,
+                                  recv_of_send=g.recv_of_send,
+                                  send_indptr=g.send_indptr,
+                                  bf16=self._bf16())
+
+    # -- params ------------------------------------------------------------
+
+    def init_params(self, generator: torch.Generator,
+                    pretrained_tables: tuple | None = None) -> dict:
+        """Fresh tables (pretrain / for_tune, or without pretrained ones)
+        and, in the finetune phase, the gate, drawn from ``generator`` on
+        the graph's device."""
+        g, cfg = self.graph, self.cfg
+        dev = g.device
+        params: dict[str, Any] = {}
+        if self.phase in ("pretrain", "for_tune") or pretrained_tables is None:
+            params["user_embedding"] = _xavier((g.num_users, cfg.emb_size),
+                                               generator, dev)
+            params["item_embedding"] = _xavier((g.num_items, cfg.emb_size),
+                                               generator, dev)
+        else:
+            params["user_embedding"], params["item_embedding"] = \
+                pretrained_tables
+        if self.phase == "finetune":
+            self._no_lora()
+            params["gating_weight"] = _xavier((cfg.emb_size, cfg.emb_size),
+                                              generator, dev)
+            params["gating_bias"] = _xavier((1, cfg.emb_size), generator, dev)
+        return params
+
+    # -- forward -----------------------------------------------------------
+
+    def _no_lora(self):
+        if self.phase == "finetune" and self.use_rag and self.cfg.use_lora:
+            raise NotImplementedError(
+                "use_lora=True is not ported yet (ROADMAP.md queue 1, "
+                "'Edge model core': nn/lora.py)")
+
+    def _gate(self, params, all_emb, generator):
+        if self.phase == "finetune":
+            return learned_gate(all_emb, params["gating_weight"],
+                                params["gating_bias"])
+        if self.phase == "for_tune":
+            if generator is None:
+                generator = torch.Generator(all_emb.device).manual_seed(0)
+            return random_gate(all_emb, generator)
+        return all_emb
+
+    def forward(self, params, *, generator: torch.Generator | None = None,
+                training: bool = False, edge_mask=None, edge_mask_send=None,
+                time_scale: float = 1.0, max_time_step=None, graph=None,
+                resources=None):
+        """Returns ``(user_emb, item_emb)``.
+
+        ``graph`` / ``resources`` override the instance's graph and
+        library; ``edge_mask_send`` is the keep mask in sender order, which
+        keeps the fused propagation usable under a mask.
+        """
+        if training:
+            raise NotImplementedError(
+                "training is not ported yet (ROADMAP.md queue 1, 'Edge "
+                "training, eval and CLI')")
+        g = self.graph if graph is None else graph
+        weights, w_send, impl = self._edge_weights(
+            g, edge_mask, edge_mask_send, time_scale=time_scale,
+            max_time_step=max_time_step)
+        self._no_lora()
+        all_emb = torch.cat([params["user_embedding"],
+                             params["item_embedding"]], dim=0)
+        all_emb = self._gate(params, all_emb, generator)
+
+        layers = self._propagate_layers(g, all_emb, weights, w_send, impl)
+        res_emb = sum(layers)
+
+        res_src = (resources if resources is not None
+                   else (self.resource_keys, self.resource_values))
+        if self.use_rag and self.phase in ("vanilla", "finetune") \
+                and res_src[0] is not None:
+            res_emb = self._fuse_rag(layers[0], res_emb, resources=res_src)
+        return res_emb[: g.num_users], res_emb[g.num_users:]
+
+    def _fuse_rag(self, query_emb, res_emb, resources=None):
+        """Cosine top-k over the library and the weighted fusion of the
+        retrieved values' mean, chunked over the queries at ``rag_chunk``
+        (else ``batch_size``) so no ``(N, R)`` score matrix exists."""
+        cfg = self.cfg
+        res_keys, res_values = (resources if resources is not None
+                                else (self.resource_keys,
+                                      self.resource_values))
+        k = min(cfg.retrieve_num, res_keys.shape[0])
+        qn, e = query_emb.shape
+        if k * e > _BIG_K_ELEMS:
+            raise NotImplementedError(
+                f"retrieve_num={cfg.retrieve_num} needs the huge-k "
+                "threshold fusion, which is not ported yet (ROADMAP.md "
+                "queue 1, 'Main-path ops': ops/selection.py)")
+        chunk = min(cfg.rag_chunk or cfg.batch_size, qn)
+        keys_n = l2_normalize(res_keys)
+        means = []
+        for s in range(0, qn, chunk):
+            _, idx = cosine_topk(query_emb[s:s + chunk], keys_n, k,
+                                 keys_normalized=True,
+                                 score_dtype=cfg.retrieve_dtype)
+            means.append(topk_gather(res_values, idx).mean(dim=1))
+        rag_emb = torch.cat(means, dim=0)
+        return (1.0 - cfg.retrieve_weight) * res_emb \
+            + cfg.retrieve_weight * rag_emb
+
+    # -- resource graph (library) ------------------------------------------
+
+    def make_resource_graph(self, pretrained_user_emb, pretrained_item_emb,
+                            generator: torch.Generator | None = None,
+                            graph=None):
+        """Build the retrieval library from pretrained embeddings: keys are
+        the last propagation layer, values the sum of the even layers;
+        optional inverse-importance sampling and feature augmentation draw
+        from ``generator``. Sets the instance library and returns
+        ``(keys, values)``."""
+        g = self.graph if graph is None else graph
+        cfg = self.cfg
+        if generator is None and (cfg.num_augment_scale > 0
+                                  or cfg.num_inverse_sample > 0):
+            raise ValueError("augmentation and inverse sampling draw from "
+                             "a generator; pass one")
+        all_emb = torch.cat([pretrained_user_emb, pretrained_item_emb], dim=0)
+        layers = self._propagate_layers(g, all_emb, g.edge_norm, None,
+                                        self._segsum_impl(g))
+        keys_base = layers[-1]
+        values_base = sum(layers[0::2])
+
+        sample_prob = inverse_sample_prob_edges(
+            g.senders, g.receivers, g.edge_norm, g.num_nodes)
+
+        all_keys, all_values = [], []
+        for i in range(1 + cfg.num_augment_scale):
+            if i > 0:
+                aug_keys = augment_features(generator, keys_base, sample_prob)
+                aug_values = augment_features(generator, values_base,
+                                              sample_prob)
+            else:
+                aug_keys, aug_values = keys_base, values_base
+            if cfg.num_inverse_sample > 0:
+                idx = torch.multinomial(sample_prob, cfg.num_inverse_sample,
+                                        replacement=True, generator=generator)
+                aug_keys = aug_keys[idx]
+                aug_values = aug_values[idx]
+            all_keys.append(aug_keys)
+            all_values.append(aug_values)
+
+        self.resource_keys = torch.cat(all_keys, dim=0)
+        self.resource_values = torch.cat(all_values, dim=0)
+        return self.resource_keys, self.resource_values
+
+    # -- serving -----------------------------------------------------------
+
+    @torch.no_grad()
+    def generate(self, params, generator: torch.Generator | None = None,
+                 max_time_step=None, graph=None, resources=None):
+        """Full-graph embeddings, no dropout."""
+        return self.forward(params, generator=generator, training=False,
+                            max_time_step=max_time_step, graph=graph,
+                            resources=resources)
+
+    @staticmethod
+    def rating(user_emb, item_emb):
+        return user_emb.float() @ item_emb.float().T
+
+    @staticmethod
+    @torch.no_grad()
+    def recommend_from(user_emb: torch.Tensor, item_emb: torch.Tensor,
+                       user_ids: torch.Tensor, k: int = 20,
+                       hist_rows: torch.Tensor | None = None,
+                       hist_cols: torch.Tensor | None = None,
+                       hist_pad: int | None = None):
+        """Per-request serving from precomputed embeddings: score, mask the
+        user's history, take the top-k. Returns ``(scores, items)``.
+
+        ``hist_rows/hist_cols`` index (batch row, item) pairs to exclude;
+        out-of-range entries are ignored. With the default
+        ``hist_pad=None`` history is masked to ``-1e8`` in the full score
+        matrix; a positive ``hist_pad`` takes the top ``k + hist_pad``
+        candidates first, drops history among them and re-takes the top
+        ``k``. The top-k is exact at every catalog size (the TPU's
+        approximate top-k above 32k items has no GPU counterpart).
+        """
+        scores = user_emb[user_ids.long()].float() @ item_emb.float().T
+        if hist_rows is None:
+            return torch.topk(scores, k, dim=1)
+        rows, cols = hist_rows.long(), hist_cols.long()
+        b, n_items = scores.shape
+        if not hist_pad:
+            ok = (rows >= 0) & (rows < b) & (cols >= 0) & (cols < n_items)
+            scores[rows[ok], cols[ok]] = -1e8
+            return torch.topk(scores, k, dim=1)
+        s, idx = torch.topk(scores, k + hist_pad, dim=1)
+        r = rows.clamp(0, b - 1)
+        seen = (idx[r] == cols[:, None]) & (rows[:, None] < b)
+        bad = torch.zeros(idx.shape, dtype=torch.int32, device=idx.device)
+        bad = bad.index_add_(0, r, seen.int()) > 0
+        s = torch.where(bad, -1e8, s)
+        s2, pos = torch.topk(s, k, dim=1)
+        return s2, torch.gather(idx, 1, pos)
+
+    def recommend(self, params, user_ids: torch.Tensor, k: int = 20,
+                  hist_rows: torch.Tensor | None = None,
+                  hist_cols: torch.Tensor | None = None,
+                  generator: torch.Generator | None = None):
+        """One-shot serving: full :meth:`generate`, then
+        :meth:`recommend_from`."""
+        user_emb, item_emb = self.generate(params, generator=generator)
+        return self.recommend_from(user_emb, item_emb, user_ids, k=k,
+                                   hist_rows=hist_rows, hist_cols=hist_cols)
+
+
+class LightGCNEdge(TemporalLightGCN):
+    """Plain LightGCN (no time encoding, no gate, no RAG)."""
+
+    use_time = False
+    use_rag = False
+
+    def _gate(self, params, all_emb, generator):
+        return all_emb
+
+
+class GraphPro(TemporalLightGCN):
+    """Temporal LightGCN with gating (the pretrain backbone)."""
+
+    use_time = True
+    use_rag = False
+
+
+class RAGraphEdge(TemporalLightGCN):
+    """The RAG recommender."""
+
+    use_time = True
+    use_rag = True
+
+
+def edge_config_for(dataset_name: str, phase: str,
+                    num_nodes: int | None = None,
+                    **overrides) -> EdgeModelConfig:
+    """Materialise the per-dataset knob table into a typed config."""
+    base = EDGE_DATASET_CONFIGS.get(dataset_name)
+    kwargs: dict[str, Any] = {}
+    if base is not None:
+        kwargs["retrieve_weight"] = base["retrieve_weight"]
+        sub = base["vanilla"] if phase == "vanilla" else base["finetune"]
+        for k, v in sub.items():
+            if k == "inverse_frac":
+                if num_nodes is not None:
+                    kwargs["num_inverse_sample"] = round(v * num_nodes)
+            else:
+                kwargs[k] = v
+    kwargs.update(overrides)
+    return EdgeModelConfig(**kwargs)

@@ -1,0 +1,167 @@
+"""CSR segment sums of the LightGCN propagation (counterpart of
+``ragraph_tpu/ops/pallas_segment.py``).
+
+- :func:`gather_scale_segsum`: ``out[r] = Σ_{e∈[indptr[r], indptr[r+1])}
+  w[e]·emb[senders[e]]`` over receiver-sorted CSR. Kernel A on CUDA
+  (``csrc/csr_segment.cu``). Its backward is the same kernel on the
+  sender-order arrays, as in the JAX custom VJP; the weights get no
+  gradient.
+- :func:`sorted_segment_sum_grad`: ``out[r] = Σ msgs[e]`` over CSR segments
+  of pre-scaled f32 messages. Kernel B on CUDA. Its backward is
+  ``ct[seg_ids]``.
+
+Each has a plain PyTorch version (``*_plain``) in this module. A wrapper
+runs the plain version only for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.
+
+With ``bf16=True`` the table and the weights are rounded to bf16, and
+products and sums are taken in f32, as the TPU kernel does. The CUDA
+kernels sum each segment directly in edge order, which is more accurate
+than the TPU's prefix difference (``pallas_segment.py:145-148``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ragraph_tpu_torch import native
+
+
+def _segment_ids(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
+    counts = (indptr[1:] - indptr[:-1]).long()
+    ids = torch.repeat_interleave(
+        torch.arange(len(counts), device=indptr.device), counts)
+    if ids.numel() != n_edges:
+        raise ValueError(f"indptr covers {ids.numel()} edges, "
+                         f"expected {n_edges}")
+    return ids
+
+
+def gather_scale_segsum_plain(table: torch.Tensor, w: torch.Tensor,
+                              idx: torch.Tensor, indptr: torch.Tensor,
+                              bf16: bool) -> torch.Tensor:
+    """Plain version of kernel A (``index_add_`` over segment ids)."""
+    t, ww = table.float(), w.float()
+    if bf16:
+        t = t.to(torch.bfloat16).float()
+        ww = ww.to(torch.bfloat16).float()
+    msgs = t[idx.long()] * ww[:, None]
+    out = torch.zeros(len(indptr) - 1, t.shape[1], dtype=torch.float32,
+                      device=t.device)
+    return out.index_add_(0, _segment_ids(indptr, len(idx)), msgs)
+
+
+def segment_sum_plain(msgs: torch.Tensor,
+                      indptr: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel B (``index_add_`` over segment ids)."""
+    out = torch.zeros(len(indptr) - 1, msgs.shape[1], dtype=torch.float32,
+                      device=msgs.device)
+    return out.index_add_(0, _segment_ids(indptr, msgs.shape[0]),
+                          msgs.float())
+
+
+def _check_cuda(name: str, **tensors: tuple) -> None:
+    """Check device, dtype and layout of each ``arg=(tensor, dtype, ndim)``."""
+    dev = None
+    for arg, (t, dtype, ndim) in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: {arg} is on {t.device}, not CUDA")
+        dev = dev or t.device
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
+                             f"{ndim}-d tensor, got shape {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def _check_width(name: str, d: int) -> None:
+    if d % 2 or not 0 < d <= 512:
+        raise ValueError(f"{name}: row width must be even and at most 512, "
+                         f"got {d}")
+
+
+def _csr_gather_scale(table: torch.Tensor, w: torch.Tensor,
+                      idx: torch.Tensor, indptr: torch.Tensor,
+                      bf16: bool) -> torch.Tensor:
+    """Kernel A on CUDA tensors, its plain version on CPU tensors."""
+    if table.device.type == "cpu":
+        return gather_scale_segsum_plain(table, w, idx, indptr, bf16)
+    name = "csr_gather_scale_segsum"
+    src = table.to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    n_rows, d = len(indptr) - 1, src.shape[1]
+    _check_cuda(name, table=(src, src.dtype, 2), w=(w, torch.float32, 1),
+                idx=(idx, torch.int32, 1), indptr=(indptr, torch.int32, 1))
+    _check_width(name, d)
+    if len(w) != len(idx):
+        raise ValueError(f"{name}: {len(w)} weights for {len(idx)} edges")
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=src.device)
+    rc = native.lib().rg_csr_gather_scale_segsum(
+        src.data_ptr(), w.data_ptr(), idx.data_ptr(), indptr.data_ptr(),
+        out.data_ptr(), n_rows, d, int(bf16), native.stream_ptr(src))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+def csr_segment_sum(msgs: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
+    """Kernel B on CUDA tensors, its plain version on CPU tensors."""
+    if msgs.device.type == "cpu":
+        return segment_sum_plain(msgs, indptr)
+    name = "csr_segment_sum"
+    _check_cuda(name, msgs=(msgs, torch.float32, 2),
+                indptr=(indptr, torch.int32, 1))
+    _check_width(name, msgs.shape[1])
+    n_rows, d = len(indptr) - 1, msgs.shape[1]
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=msgs.device)
+    rc = native.lib().rg_csr_segment_sum(
+        msgs.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_rows, d,
+        native.stream_ptr(msgs))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+class _GatherScaleSegsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, emb, w_recv, w_send, senders, recv_indptr, recv_of_send,
+                send_indptr, bf16):
+        ctx.save_for_backward(w_send, recv_of_send, send_indptr)
+        ctx.bf16 = bf16
+        return _csr_gather_scale(emb, w_recv, senders, recv_indptr, bf16)
+
+    @staticmethod
+    def backward(ctx, ct):
+        w_send, recv_of_send, send_indptr = ctx.saved_tensors
+        d_emb = _csr_gather_scale(ct.contiguous(), w_send, recv_of_send,
+                                  send_indptr, ctx.bf16)
+        return d_emb, None, None, None, None, None, None, None
+
+
+def gather_scale_segsum(emb, w_recv, w_send, senders, recv_indptr,
+                        recv_of_send, send_indptr, bf16: bool = True):
+    """Differentiable fused LightGCN propagation layer (see module doc)."""
+    return _GatherScaleSegsum.apply(emb, w_recv, w_send, senders,
+                                    recv_indptr, recv_of_send, send_indptr,
+                                    bf16)
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, msgs, indptr, seg_ids):
+        ctx.save_for_backward(seg_ids)
+        return csr_segment_sum(msgs, indptr)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (seg_ids,) = ctx.saved_tensors
+        return ct[seg_ids.long()].float(), None, None
+
+
+def sorted_segment_sum_grad(msgs, indptr, seg_ids):
+    """Differentiable sorted segment sum; ``seg_ids`` (the sorted receivers)
+    serves only the backward, ``d msgs = d out[seg_ids]``."""
+    return _SortedSegmentSum.apply(msgs, indptr, seg_ids)

@@ -1,0 +1,19 @@
+"""Cosine similarity (counterpart of ``ragraph_tpu/ops/similarity.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-12) -> torch.Tensor:
+    """Row-wise L2 normalisation, ``x * rsqrt(max(Σx², eps²))``: finite
+    (zero) at an all-zero row, and with a finite gradient there."""
+    sq = (x * x).sum(dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp_min(sq, eps * eps))
+
+
+def cosine_similarity(queries: torch.Tensor,
+                      keys: torch.Tensor) -> torch.Tensor:
+    """``(Q, E) x (R, E) -> (Q, R)`` cosine similarity matrix in f32."""
+    return l2_normalize(queries.float()) @ l2_normalize(keys.float()).T

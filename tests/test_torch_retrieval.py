@@ -1,0 +1,155 @@
+"""The port's retrieval ops against the JAX package: the fused cosine top-k
+(JAX Pallas kernel in interpret mode), the exact ``cosine_topk`` and the
+cosine similarity helpers."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ragraph_tpu.ops import pallas_retrieval as jret
+from ragraph_tpu.ops import similarity as jsim
+from ragraph_tpu.ops import topk as jtopk
+from ragraph_tpu_torch.ops import fused_retrieval as tret
+from ragraph_tpu_torch.ops import similarity as tsim
+from ragraph_tpu_torch.ops import topk as ttopk
+
+TIE = 1e-6   # scores agree to this; indices may differ only inside a tie
+
+
+def _unit(rng, n, e):
+    x = rng.normal(size=(n, e)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _assert_topk_equal(s, i, want_s, want_i):
+    """Scores within TIE; indices equal except inside a run of neighbouring
+    scores within TIE (a tie the two sides may order apart), or in the last
+    column (a tie with a row just outside the top-k)."""
+    s, i = np.asarray(s), np.asarray(i)
+    want_s, want_i = np.asarray(want_s), np.asarray(want_i)
+    np.testing.assert_allclose(s, want_s, rtol=0, atol=TIE)
+    for r, c in zip(*np.nonzero(i != want_i)):
+        run = np.abs(want_s[r] - want_s[r, c]) <= TIE
+        assert run.sum() > 1 or c == len(run) - 1, \
+            f"row {r} col {c}: {i[r]} vs {want_i[r]}"
+
+
+@pytest.mark.parametrize("q_len,r_len,e,k,n_valid", [
+    (16, 256, 64, 10, None),     # R a multiple of the JAX block
+    (5, 300, 32, 10, 3),         # fewer valid rows than k
+    (1, 129, 16, 50, 100),       # one query, ragged R, invalid rows
+    (9, 200, 8, 128, None),      # k at the kernel's limit, k < R < 2k
+])
+def test_fused_cosine_topk_matches_jax(q_len, r_len, e, k, n_valid):
+    rng = np.random.default_rng(q_len + r_len)
+    q, keys = _unit(rng, q_len, e), _unit(rng, r_len, e)
+    valid = None
+    if n_valid is not None:
+        valid = np.zeros(r_len, bool)
+        valid[rng.permutation(r_len)[:n_valid]] = True
+    want_s, want_i = jret.fused_cosine_topk(
+        jnp.asarray(q), jnp.asarray(keys), k,
+        valid_mask=None if valid is None else jnp.asarray(valid),
+        block_q=8, block_r=128, interpret=True)
+    s, i = tret.fused_cosine_topk(
+        torch.from_numpy(q), torch.from_numpy(keys), k,
+        valid_mask=None if valid is None else torch.from_numpy(valid))
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    _assert_topk_equal(s, i, want_s, want_i)
+    # exhausted slots: score -3e38, index 0, on both sides
+    n_live = r_len if n_valid is None else n_valid
+    if n_live < k:
+        assert np.all(s.numpy()[:, n_live:] == np.float32(tret.NEG_INF))
+        assert np.all(i.numpy()[:, n_live:] == 0)
+        np.testing.assert_array_equal(np.asarray(want_i)[:, n_live:], 0)
+    if valid is not None:
+        live = s.numpy() > tret.NEG_INF
+        assert valid[i.numpy()[live]].all()
+
+
+def test_fused_cosine_topk_ties_keep_the_lowest_indices():
+    """Duplicated keys: both sides keep the lowest indices; the port lists
+    them in ascending order, the TPU kernel in descending order."""
+    rng = np.random.default_rng(0)
+    q = _unit(rng, 3, 32)
+    keys = np.repeat(_unit(rng, 1, 32), 300, axis=0)
+    want_s, want_i = jret.fused_cosine_topk(jnp.asarray(q), jnp.asarray(keys),
+                                            5, block_q=8, block_r=128,
+                                            interpret=True)
+    s, i = tret.fused_cosine_topk(torch.from_numpy(q),
+                                  torch.from_numpy(keys), 5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), atol=TIE)
+    np.testing.assert_array_equal(i.numpy(), np.tile(np.arange(5), (3, 1)))
+    np.testing.assert_array_equal(np.sort(np.asarray(want_i), axis=1),
+                                  i.numpy())
+
+
+def test_fused_cosine_topk_rejects_large_k():
+    x = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="k <= 128"):
+        tret.fused_cosine_topk(x, x, tret.MAX_K + 1)
+
+
+@pytest.mark.parametrize("normalized", [True, False])
+def test_cosine_topk_exact_matches_jax(normalized):
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(12, 24)).astype(np.float32)
+    keys = rng.normal(size=(400, 24)).astype(np.float32)
+    valid = rng.random(400) < 0.8
+    if normalized:
+        q, keys = _unit(rng, 12, 24), _unit(rng, 400, 24)
+    for mask in (None, valid):
+        want_s, want_i = jtopk.cosine_topk(
+            jnp.asarray(q), jnp.asarray(keys), 7,
+            valid_mask=None if mask is None else jnp.asarray(mask),
+            queries_normalized=normalized, keys_normalized=normalized,
+            method="exact")
+        s, i = ttopk.cosine_topk(
+            torch.from_numpy(q), torch.from_numpy(keys), 7,
+            valid_mask=None if mask is None else torch.from_numpy(mask),
+            queries_normalized=normalized, keys_normalized=normalized,
+            method="exact")
+        _assert_topk_equal(s, i, want_s, want_i)
+
+
+def test_cosine_topk_dispatch(monkeypatch):
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    keys = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    invalid = torch.arange(64) >= 2      # 2 valid rows, k = 4
+    # exact: -inf for invalid rows; fused ("pallas"/"approx"): -3e38, 0
+    s, _ = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid, method="exact")
+    assert torch.isinf(s[:, 2:]).all()
+    for method in ("pallas", "approx"):
+        s, i = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid,
+                                 method=method)
+        assert (s[:, 2:] == tret.NEG_INF).all() and (i[:, 2:] == 0).all()
+    # auto: exact below the threshold, the fused kernel above it
+    s_auto, _ = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid)
+    assert torch.isinf(s_auto[:, 2:]).all()
+    monkeypatch.setattr(ttopk, "AUTO_APPROX_THRESHOLD", 0)
+    s_auto, _ = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid)
+    assert (s_auto[:, 2:] == tret.NEG_INF).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttopk.cosine_topk(q, keys, 4, recall_target=1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttopk.cosine_topk(q, keys, 4, method="bucket")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttopk.cosine_topk(q, keys, 4, score_dtype="int8")
+    vals = torch.arange(64 * 2, dtype=torch.float32).reshape(64, 2)
+    assert ttopk.topk_gather(vals, torch.tensor([[1, 3]])).shape == (1, 2, 2)
+
+
+def test_similarity_matches_jax():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(20, 12)).astype(np.float32)
+    x[3] = 0.0                                   # an all-zero row stays 0
+    y = rng.normal(size=(30, 12)).astype(np.float32)
+    np.testing.assert_allclose(
+        tsim.l2_normalize(torch.from_numpy(x)).numpy(),
+        np.asarray(jsim.l2_normalize(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        tsim.cosine_similarity(torch.from_numpy(x), torch.from_numpy(y)),
+        np.asarray(jsim.cosine_similarity(jnp.asarray(x), jnp.asarray(y))),
+        rtol=1e-5, atol=1e-6)
