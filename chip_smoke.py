@@ -5,16 +5,23 @@
 
 Phases (any failure exits non-zero):
 1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc;
-2. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at ragged small shapes;
+2. hold each of the seven kernels against its plain PyTorch version on the
+   card, at the main path's shapes and at ragged small shapes;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
    kernel's launches in that run and require every count to be positive;
-4. run a small graph through the same path on the card and on the CPU
+4. the retrieval tiers on the same graph, each with its launches counted
+   from zero: the exact tier (all 128 chunks of the refresh's queries
+   through ``cosine_topk(method="auto", recall_target=1.0)``, held against
+   the fused kernel), the huge-k tier (a RAG ``generate`` with the koubei
+   ``vanilla`` config, ``retrieve_num=100000`` against a 524,288-row
+   library, both ``selection_dtype`` values, held against ``torch.topk``)
+   and the int8 tier (one chunk, pre-quantized table, ``rescore_pad=22``);
+5. run a small graph through the serving path on the card and on the CPU
    (plain versions) and require the embeddings to agree; run the
    ``vanilla`` CLI on the synthetic stream on the card;
-5. time each kernel, its plain version and one PyTorch library call that
+6. time each kernel, its plain version and one PyTorch library call that
    computes the same function, beside its bound.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
@@ -46,6 +53,13 @@ F32_FLOP_PER_MS = 67e9      # f32 outside the tensor cores
 TOL_SEGSUM = (1e-5, 1e-6)   # f32 sums of the same terms in another order
 TOL_E2E = (1e-5, 1e-6)      # small-graph embeddings, card vs CPU, f32
 TOL_SCORE = 1e-5            # exact bf16 products, f32 sums of <= 256 terms
+# Kernels D-G against their plain versions, and the exact tier against kernel
+# C: no difference at all. D, F and C add the same exact bf16 products in one
+# order, the plain versions add them in that order too, and E and G only
+# select.
+TOL_BUCKET = 0.0
+K_PATH = 10                 # EdgeModelConfig().retrieve_num
+P_MAX = 32                  # bucketed_exact_topk's default capacity
 
 
 def fail(msg: str) -> None:
@@ -202,6 +216,187 @@ def segsum_checks(rng, dev, n, e, d, hub):
     check_close(f"B {tag}", got, cs.segment_sum_plain(msgs, ip), TOL_SEGSUM)
 
 
+def check_same(name, got, ref):
+    """Tolerance TOL_BUCKET: every value equal."""
+    import torch
+    if got.shape != ref.shape:
+        fail(f"{name}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
+    if got.dtype.is_floating_point:
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        ok = bool(torch.isfinite(got).all()) and err <= TOL_BUCKET
+    else:
+        err = int((got != ref).sum())
+        ok = err == 0
+    print(f"  {name}: max_abs_err={err:.3e} tol={TOL_BUCKET:.0e} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return float(err)
+
+
+def dense_topk(q, keys, k, valid=None):
+    """The bucket path's reference at small sizes: every score by the
+    kernels' dot order, a stable sort, (-inf, 0) in exhausted slots."""
+    import torch
+
+    from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
+    scores = _fma_chain(q.to(torch.bfloat16)[:, None, :],
+                        keys.to(torch.bfloat16)[None, :, :])
+    if valid is not None:
+        scores = torch.where(valid[None, :], scores, -torch.inf)
+    s, i = torch.sort(scores, dim=1, descending=True, stable=True)
+    s, i = s[:, :k], i[:, :k]
+    return s, torch.where(torch.isinf(s), 0, i).to(torch.int32)
+
+
+def check_bucket_family(name, q, keys, k, valid=None, p_max=P_MAX):
+    """``bucketed_exact_topk`` against the dense reference: scores equal,
+    and an index that differs points at a key with the same score."""
+    import torch
+
+    from ragraph_tpu_torch.ops.bucket_topk import (_fma_chain,
+                                                   bucketed_exact_topk)
+    s, i = bucketed_exact_topk(q, keys, k, valid_mask=valid, p_max=p_max)
+    torch.cuda.synchronize()
+    ps, pi = dense_topk(q, keys, k, valid)
+    live = torch.isfinite(ps)
+    bad = not torch.equal(torch.isfinite(s), live)
+    err = float((s[live] - ps[live]).abs().max()) if live.any() else 0.0
+    bad |= err > TOL_BUCKET or bool((i[~live] != 0).any())
+    diff = (i != pi) & live
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        picked = _fma_chain(q.to(torch.bfloat16)[rows],
+                            keys.to(torch.bfloat16)[i[diff].long()])
+        bad |= bool((picked != ps[diff]).any())
+        if valid is not None:
+            bad |= not bool(valid[i[diff].long()].all())
+    print(f"  {name}: max_abs_err={err:.3e} tol={TOL_BUCKET:.0e} "
+          f"index_ties={int(diff.sum())} {'ok' if not bad else 'MISMATCH'}",
+          flush=True)
+    if bad:
+        fail(f"{name} disagrees with the dense reference")
+
+
+def bucket_stages(q, keys, k):
+    """The tensors each of D, E, F, G reads on the bucket path, made by the
+    path's own code: what the checks and the timings feed the kernels."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    qh = q.to(torch.bfloat16).contiguous()
+    kh = keys.to(torch.bfloat16).contiguous()
+    bm, assign, ids, cand = bt.bucket_candidates(qh, kh, k, None, P_MAX)
+    return dict(qh=qh, kh=kh, bm=bm, ids=ids, assign=assign, cand=cand)
+
+
+def bucket_kernel_checks(gen, dev, q_path, keys_path):
+    """Kernels D, E, F and G against their plain versions."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    errs = {}
+
+    def unit(n, e):
+        return l2_normalize(torch.randn(n, e, generator=gen, device=dev))
+
+    def mask(n, spec):
+        """``spec``: None, ("rand", n_valid) or ("first", n_valid)."""
+        if spec is None:
+            return None
+        if spec[0] == "first":
+            return torch.arange(n, device=dev) < spec[1]
+        valid = torch.zeros(n, dtype=torch.bool, device=dev)
+        valid[torch.randperm(n, generator=gen, device=dev)[:spec[1]]] = True
+        return valid
+
+    # D and F on ragged shapes: R not a multiple of 128, masks that thin out
+    # or empty whole buckets, E at both limits, empty and out-of-range slots
+    for n_q, n_r, e, spec, p_max in (
+            (70, 1000, 64, None, 5), (5, 130, 8, ("rand", 60), 3),
+            (64, 128, 256, None, 32), (1, 4097, 136, ("rand", 900), 7),
+            (130, 2048, 64, ("first", 200), 33)):
+        qh, kh = unit(n_q, e).bfloat16(), unit(n_r, e).bfloat16()
+        valid = mask(n_r, spec)
+        tag = f"Q={n_q} R={n_r} E={e} valid={spec}"
+        check_same(f"D {tag}", bt.bucket_max(kh, qh, valid),
+                   bt.bucket_max_plain(kh, qh, valid))
+        nb = -(-n_r // bt.LANE)
+        assign = torch.randint(-1, n_q + 4, (nb, p_max), generator=gen,
+                               device=dev, dtype=torch.int32)
+        check_same(f"F {tag} P={p_max}",
+                   bt.bucket_rescore(assign, qh, kh, valid),
+                   bt.bucket_rescore_plain(assign, qh, kh, valid))
+    # E and G: value ties on a coarse grid, exhausted columns and rows, k at
+    # the limit, a row at G's shared-memory limit
+    for n_r, n_q, k, grid in ((300, 130, 4, True), (50, 33, 50, False),
+                              (1000, 40, 128, True), (2, 1, 1, False),
+                              (777, 2049, 10, False)):
+        x = torch.randn(n_r, n_q, generator=gen, device=dev)
+        if grid:
+            x = torch.round(x * 2)
+        x[:, 0] = bt.NEG_INF                # a column with nothing in it
+        x[n_r // 2:, -1] = bt.NEG_INF
+        for got, ref, what in zip(bt.column_topk(x, k),
+                                  bt.column_topk_plain(x, k), "vi"):
+            check_same(f"E R={n_r} Q={n_q} k={k} {what}", got, ref)
+    for n_q, w, k, grid in ((70, 260, 4, True), (9, 16384, 128, True),
+                            (3, 50000, 7, False), (1, 1, 1, False),
+                            (300, 1280, 10, False)):
+        x = torch.randn(n_q, w, generator=gen, device=dev)
+        if grid:
+            x = torch.round(x * 2)
+        x[0] = bt.NEG_INF
+        x[-1, w // 2:] = bt.NEG_INF
+        for got, ref, what in zip(bt.row_topk(x, k),
+                                  bt.row_topk_plain(x, k), "vi"):
+            check_same(f"G Q={n_q} W={w} k={k} {what}", got, ref)
+
+    # the path's shape, each kernel on what the path hands it
+    st = bucket_stages(q_path, keys_path, K_PATH)
+    tag = f"Q={CHUNK} R={keys_path.shape[0]} k={K_PATH}"
+    errs["D"] = check_same(f"D {tag}", st["bm"],
+                           bt.bucket_max_plain(st["kh"], st["qh"]))
+    errs["E"] = max(check_same(f"E {tag} {what}", got, ref)
+                    for got, ref, what in zip(
+                        bt.column_topk(st["bm"], K_PATH),
+                        bt.column_topk_plain(st["bm"], K_PATH), "vi"))
+    errs["F"] = check_same(
+        f"F {tag} P={P_MAX}",
+        bt.bucket_rescore(st["assign"], st["qh"], st["kh"]),
+        bt.bucket_rescore_plain(st["assign"], st["qh"], st["kh"]))
+    errs["G"] = max(check_same(f"G {tag} {what}", got, ref)
+                    for got, ref, what in zip(
+                        bt.row_topk(st["cand"], K_PATH),
+                        bt.row_topk_plain(st["cand"], K_PATH), "vi"))
+    del st
+
+    # the four together, with the glue, on ragged shapes
+    for n_q, n_r, e, k, spec, same, p_max in (
+            (100, 4000, 64, 10, None, False, P_MAX),   # R % 128 != 0
+            (13, 3000, 48, 4, ("rand", 1500), False, P_MAX),
+            (16, 2000, 64, 8, ("first", 200), False, P_MAX),  # 2 buckets < k
+            (9, 700, 16, 6, ("first", 4), False, P_MAX),      # 4 rows < k
+            (300, 2048, 32, 6, None, True, 4),         # overflow of p_max
+            (8, 200, 16, 10, None, False, P_MAX),      # fewer buckets than k
+            (4100, 1024, 16, 3, None, False, P_MAX)):  # two query passes
+        q, keys = unit(n_q, e), unit(n_r, e)
+        if same:
+            q = q[:1].repeat(n_q, 1)
+        check_bucket_family(
+            f"D-G Q={n_q} R={n_r} E={e} k={k} valid={spec} "
+            f"same_queries={same} p_max={p_max}", q, keys, k,
+            mask(n_r, spec), p_max)
+    for fn in (bt.column_topk, bt.row_topk):
+        try:
+            fn(torch.zeros(4, 4, device=dev), bt.MAX_K + 1)
+        except ValueError:
+            continue
+        fail(f"{fn.__name__} took k = {bt.MAX_K + 1}")
+    return errs
+
+
 def phase_kernel_checks(rng, dev, graph):
     import torch
 
@@ -236,6 +431,7 @@ def phase_kernel_checks(rng, dev, graph):
     keys = l2_normalize(torch.randn(g.num_nodes, D, generator=gen,
                                     device=dev))
     errs["C"] = check_topk(f"C Q={CHUNK} R={g.num_nodes} k=10", q, keys, 10)
+    errs.update(bucket_kernel_checks(gen, dev, q, keys))
 
     for n, e, d, hub in ((37, 1001, 64, False), (300, 4099, 18, True),
                          (5, 3, 2, False), (64, 777, 130, True),
@@ -351,7 +547,219 @@ def phase_main_path(dev, ds, graph, params):
         if launches[name] != n:
             print(f"  note: {name} launched {launches[name]} times, "
                   f"expected {n}", flush=True)
+    return launches, keys
+
+
+def layer0_queries(params):
+    """The RAG queries of a vanilla-phase ``generate``: layer 0, the tables
+    themselves."""
+    import torch
+    return torch.cat([params["user_embedding"], params["item_embedding"]])
+
+
+def phase_exact_tier(dev, params, keys):
+    """Every chunk of the refresh's queries through the exact tier, as
+    ``_fuse_rag`` would call it with exact results asked for."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
+    from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.ops.topk import cosine_topk
+    queries = layer0_queries(params)
+    keys_n = l2_normalize(keys)
+    n = queries.shape[0]
+    n_chunks = -(-n // CHUNK)
+    print(f"phase 4a: exact tier, {n_chunks} chunks of {CHUNK} queries "
+          f"against {keys_n.shape[0]} rows, k = {K_PATH}", flush=True)
+    if keys_n.shape[0] != U + I or n_chunks != 128:
+        fail("exact tier: not the refresh's 128 chunks at R = 262,144")
+
+    def bucket_tier():
+        return [cosine_topk(queries[s:s + CHUNK], keys_n, K_PATH,
+                            keys_normalized=True, method="auto",
+                            recall_target=1.0) for s in range(0, n, CHUNK)]
+
+    timer = StageTimer()
+    native.reset_launches()
+    out = timer("exact_tier", bucket_tier)
+    launches = dict(native.LAUNCHES)
+    timer("exact_tier_warm", bucket_tier)
+    q_n = l2_normalize(queries)
+    ref = timer("fused_kernel_same_chunks", lambda: [
+        fused_cosine_topk(q_n[s:s + CHUNK], keys_n, K_PATH)
+        for s in range(0, n, CHUNK)])
+    print(json.dumps({"exact_tier_ms": timer.ms, "launches": launches}),
+          flush=True)
+    for name in ("bucket_max", "column_topk", "bucket_rescore", "row_topk"):
+        if launches.get(name, 0) != n_chunks:
+            fail(f"exact tier: kernel {name} launched "
+                 f"{launches.get(name, 0)} times, expected {n_chunks}")
+    s, i = (torch.cat([o[j] for o in out]) for j in (0, 1))
+    cs, ci = (torch.cat([o[j] for o in ref]) for j in (0, 1))
+    if s.shape != (n, K_PATH) or not bool(torch.isfinite(s).all()):
+        fail("exact tier: wrong shape or non-finite scores")
+    err = float((s - cs).abs().max())
+    diff = i != ci
+    bad = err > TOL_BUCKET
+    if diff.any():      # another index only where the score is the same
+        rows = diff.nonzero()[:, 0]
+        picked = _fma_chain(q_n.to(torch.bfloat16)[rows],
+                            keys_n.to(torch.bfloat16)[i[diff].long()])
+        bad |= bool((picked != cs[diff]).any())
+    print(f"  exact tier against kernel C: max_abs_err={err:.3e} "
+          f"tol={TOL_BUCKET:.0e} index_ties={int(diff.sum())} "
+          f"{'ok' if not bad else 'MISMATCH'}", flush=True)
+    if bad:
+        fail("exact tier disagrees with the fused kernel")
     return launches
+
+
+def phase_huge_k(dev, graph, params):
+    """A RAG ``generate`` with the koubei ``vanilla`` config: k = 100,000 of
+    a 524,288-row library by the k-th-score threshold, 512 chunks of 512
+    queries, for both selection dtypes."""
+    import dataclasses
+
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.models.edge import RAGraphEdge, edge_config_for
+    from ragraph_tpu_torch.models.edge import ragraph_edge
+    from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    cfg = edge_config_for("koubei", "vanilla", emb_size=D)
+    k, chunk, w = cfg.retrieve_num, cfg.rag_chunk, cfg.retrieve_weight
+    print(f"phase 4b: huge-k tier, koubei vanilla: retrieve_num={k} "
+          f"rag_chunk={chunk} num_augment_scale={cfg.num_augment_scale}",
+          flush=True)
+    model = RAGraphEdge(cfg, graph, phase="vanilla")
+    gen = torch.Generator(dev).manual_seed(SEED + 6)
+    timer = StageTimer()
+    native.reset_launches()
+    plain = torch.cat(timer("generate", lambda: model.generate(params)))
+    keys, values = timer("make_resource_graph", lambda: model
+                         .make_resource_graph(*plain.split([U, I]), gen))
+    k = min(k, keys.shape[0])
+    if tuple(keys.shape) != (2 * (U + I), D) \
+            or k * D <= ragraph_edge._BIG_K_ELEMS:
+        fail(f"huge-k tier: library {tuple(keys.shape)}, k * E = {k * D}")
+    fused = {}
+    for sel in ("f32", "bf16"):
+        model.cfg = dataclasses.replace(cfg, selection_dtype=sel)
+        fused[sel] = torch.cat(timer(f"generate_huge_k_{sel}",
+                                     lambda: model.generate(params)))
+    launches = dict(native.LAUNCHES)
+    if launches.get("csr_gather_scale_segsum", 0) <= 0:
+        fail("huge-k tier: the propagation kernel was not launched")
+
+    # a few chunks against torch.topk at the same k
+    queries = layer0_queries(params)
+    keys_n = l2_normalize(keys)
+    n_chunks = -(-queries.shape[0] // chunk)
+    v_max = float(values.abs().max())
+    detail = {}
+    for sel in ("f32", "bf16"):
+        model.cfg = dataclasses.replace(cfg, selection_dtype=sel)
+        kn = keys_n.to(torch.bfloat16) if sel == "bf16" else keys_n
+        if tuple(fused[sel].shape) != (U + I, D) \
+                or not bool(torch.isfinite(fused[sel]).all()):
+            fail(f"huge-k {sel}: wrong shape or non-finite embeddings")
+        worst = {"mean_err": 0.0, "index_err": 0.0, "extra_members": 0}
+        for c in (0, n_chunks // 2, n_chunks - 1):
+            rows = slice(c * chunk, (c + 1) * chunk)
+            qc = queries[rows]
+            mean = model._fuse_rag(qc, torch.zeros_like(qc)) / w
+            # the full run holds the same fusion of the same rows
+            whole = (1.0 - w) * plain[rows] + w * mean
+            if float((fused[sel][rows] - whole).abs().max()) > 1e-6:
+                fail(f"huge-k {sel} chunk {c}: generate disagrees with its "
+                     f"own chunk")
+            scores = l2_normalize(qc).to(kn.dtype) @ kn.T
+            top_v, top_i = torch.topk(scores, k, dim=1)
+            kth = rowwise_kth_largest(scores, k)
+            if not torch.equal(kth, top_v[:, -1:]):
+                fail(f"huge-k {sel} chunk {c}: the threshold is not "
+                     f"torch.topk's k-th value")
+            member = scores >= top_v[:, -1:]
+            count = member.sum(dim=1, keepdim=True)
+            ref = (member.to(values.dtype) @ values) / count
+            # same members, the same product: 1e-3 of the means' scale
+            # covers a sum taken in another order
+            scale = float(ref.abs().max())
+            worst["mean_err"] = max(worst["mean_err"],
+                                    float((mean - ref).abs().max()) / scale)
+            # the index path on 16 rows: values[topk].mean, which differs by
+            # the members tied at the k-th score, at most 2 V (c - k) / c
+            index_mean = values[top_i[:16]].mean(dim=1)
+            extra = (count[:16] - k).float()
+            slack = 2.0 * v_max * extra / count[:16] + 1e-3 * scale
+            over = ((mean[:16] - index_mean).abs() - slack).max()
+            worst["index_err"] = max(worst["index_err"], float(over))
+            worst["extra_members"] = max(worst["extra_members"],
+                                         int((count - k).max()))
+            del scores, top_v, top_i, member, index_mean
+        ok = worst["mean_err"] <= 1e-3 and worst["index_err"] <= 0.0
+        print(f"  huge-k {sel} against torch.topk: mean rel_err="
+              f"{worst['mean_err']:.3e} tol=1e-03, index path beyond its "
+              f"tie slack by {worst['index_err']:.3e} (tol 0), up to "
+              f"{worst['extra_members']} members tied past k "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"huge-k {sel} disagrees with the index path")
+        # the selection beside its library yardstick, one chunk
+        scores = l2_normalize(queries[:chunk]).to(kn.dtype) @ kn.T
+        detail[f"kth_largest_{sel}_ms"] = cuda_ms(
+            lambda: rowwise_kth_largest(scores, k), reps=3, warmup=1)
+        detail[f"library_topk_kth_{sel}_ms"] = cuda_ms(
+            lambda: torch.topk(scores, k, dim=1)[0][:, -1:], reps=3,
+            warmup=1)
+        del scores
+    if float((fused["f32"] - plain).abs().max()) == 0.0:
+        fail("huge-k fusion left the embeddings unchanged")
+    print(json.dumps({"huge_k_ms": timer.ms, "launches": launches,
+                      "selection_ms": detail}), flush=True)
+
+
+def phase_int8(dev, params, keys):
+    """One chunk through the int8 tier: a pre-quantized table and an exact
+    rescore of k + 22 candidates."""
+    import torch
+
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.ops.topk import cosine_topk, quantize_keys_i8
+    print(f"phase 4c: int8 tier, one chunk of {CHUNK} queries against "
+          f"{keys.shape[0]} rows, rescore_pad=22", flush=True)
+    qc = layer0_queries(params)[:CHUNK]
+    keys_n = l2_normalize(keys)
+    timer = StageTimer()
+    table = timer("quantize_keys_i8",
+                  lambda: quantize_keys_i8(keys_n, normalized=True))
+    exact_s, exact_i = cosine_topk(qc, keys_n, K_PATH, keys_normalized=True,
+                                   method="exact")
+    kw = dict(keys_normalized=True, method="approx", score_dtype="int8")
+    for _ in range(2):      # the second pass is warm
+        _, plain_i = timer("int8_topk", lambda: cosine_topk(
+            qc, table, K_PATH, **kw))
+        s, i = timer("int8_topk_rescore_pad_22", lambda: cosine_topk(
+            qc, table, K_PATH, rescore_pad=22, rescore_keys=keys_n, **kw))
+
+    def recall(idx):
+        return float((idx[:, :, None] == exact_i[:, None, :]).any(dim=2)
+                     .float().mean())
+
+    r_plain, r_rescore = recall(plain_i), recall(i)
+    true = (l2_normalize(qc)[:, None, :] * keys_n[i]).sum(dim=-1)
+    err = float((s - true).abs().max())
+    print(json.dumps({"int8_ms": timer.ms, "recall@10_int8": r_plain,
+                      "recall@10_int8_rescore_pad_22": r_rescore}),
+          flush=True)
+    print(f"  int8 rescored scores against f32 cosines: max_abs_err="
+          f"{err:.3e} tol={TOL_SCORE:.0e}", flush=True)
+    if tuple(i.shape) != (CHUNK, K_PATH) or err > TOL_SCORE \
+            or not r_rescore >= r_plain or r_rescore < 0.5:
+        fail(f"int8 tier: recall {r_plain} -> {r_rescore}, score error {err}")
 
 
 def phase_small_agreement(dev):
@@ -362,7 +770,7 @@ def phase_small_agreement(dev):
     from ragraph_tpu_torch.data.edgelist import load_edge_dataset
     from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
                                                EdgeModelConfig, RAGraphEdge)
-    print("phase 4: small graph, card against CPU", flush=True)
+    print("phase 5: small graph, card against CPU", flush=True)
     rng = np.random.default_rng(SEED + 3)
     train, test = make_rows(rng, 256, 256, 4096)
     ds = load_edge_dataset(train, test, num_users=256, num_items=256)
@@ -387,7 +795,7 @@ def phase_cli(dev):
 
     from ragraph_tpu_torch.cli import edge as cli
     from ragraph_tpu_torch.train.checkpoint import save_checkpoint
-    print("phase 4: vanilla CLI on the card (synthetic stream)", flush=True)
+    print("phase 5: vanilla CLI on the card (synthetic stream)", flush=True)
     rng = np.random.default_rng(SEED + 5)
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(f"{tmp}/pretrain_RAGraph_SYNTH",
@@ -407,7 +815,7 @@ def phase_timing(dev, graph, errs, launches):
     from ragraph_tpu_torch.ops.fused_retrieval import (
         fused_cosine_topk, fused_cosine_topk_plain)
     from ragraph_tpu_torch.ops.similarity import l2_normalize
-    print("phase 5: timing at the main path's shapes", flush=True)
+    print("phase 6: timing at the main path's shapes", flush=True)
     g = graph
     n, e = g.num_nodes, g.num_edges
     gen = torch.Generator(dev).manual_seed(SEED + 4)
@@ -493,9 +901,73 @@ def phase_timing(dev, graph, errs, launches):
         bound_by="bytes" if c_bytes / HBM_BYTES_PER_MS
         >= c_ops / BF16_FLOP_PER_MS else "operations",
         library_ms=c_mm + c_topk))
-    print(json.dumps({"detail_ms": {
-        "C_library_f32_matmul": c_mm, "C_library_topk": c_topk,
-        "C_bf16_matmul_bf16_out": c_mm_bf16}}), flush=True)
+    detail = {"C_library_f32_matmul": c_mm, "C_library_topk": c_topk,
+              "C_bf16_matmul_bf16_out": c_mm_bf16}
+
+    # D-G on the same chunk and library, each on what the bucket path hands
+    # it; the family as a whole beside kernel C and the library calls
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    st = bucket_stages(q, keys, K_PATH)
+    qh, kh, bm, assign, cand = (st[x] for x in
+                                ("qh", "kh", "bm", "assign", "cand"))
+    nb, p_max = assign.shape
+    n_live = int((assign < CHUNK).sum())    # slots that hold a query
+    w = cand.shape[1]
+    shapes = {
+        # name: (bytes in + out, operations, peak rate of their type)
+        "bucket_max": (2 * n * D + 2 * CHUNK * D + 4 * nb * CHUNK,
+                       2 * CHUNK * n * D, BF16_FLOP_PER_MS),
+        "column_topk": (4 * nb * CHUNK + 8 * CHUNK * K_PATH,
+                        nb * CHUNK, F32_FLOP_PER_MS),
+        "bucket_rescore": (4 * nb * p_max + 2 * CHUNK * D + 2 * n * D
+                           + 4 * nb * p_max * bt.LANE,
+                           2 * n_live * bt.LANE * D, BF16_FLOP_PER_MS),
+        "row_topk": (4 * CHUNK * w + 8 * CHUNK * K_PATH,
+                     K_PATH * CHUNK * w, F32_FLOP_PER_MS),
+    }
+    runs = {
+        # name: (key in errs, TPU kernel, kernel, plain version, library)
+        "bucket_max": ("D", 61, lambda: bt.bucket_max(kh, qh),
+                       lambda: bt.bucket_max_plain(kh, qh), None),
+        "column_topk": ("E", 112, lambda: bt.column_topk(bm, K_PATH),
+                        lambda: bt.column_topk_plain(bm, K_PATH),
+                        lambda: torch.topk(bm, K_PATH, dim=0)),
+        "bucket_rescore": ("F", 87,
+                           lambda: bt.bucket_rescore(assign, qh, kh),
+                           lambda: bt.bucket_rescore_plain(assign, qh, kh),
+                           None),
+        "row_topk": ("G", 170, lambda: bt.row_topk(cand, K_PATH),
+                     lambda: bt.row_topk_plain(cand, K_PATH),
+                     lambda: torch.topk(cand, K_PATH, dim=1)),
+    }
+    for name, (key, line, kernel, plain, library) in runs.items():
+        n_bytes, n_ops, rate = shapes[name]
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / rate
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="ragraph_tpu_torch/csrc/bucket_topk.cu",
+            replaces=f"ragraph_tpu/ops/bucket_topk.py:{line}",
+            launches=launches.get(name, 0), max_abs_err=errs[key],
+            ms=cuda_ms(kernel, reps=10), plain_ms=cuda_ms(plain, reps=2,
+                                                          warmup=1),
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            library_ms=None if library is None else cuda_ms(library,
+                                                            reps=5)))
+    lost = torch.zeros(CHUNK * K_PATH, dtype=torch.bool, device=dev)
+    detail.update({
+        "bucket_family_ms": cuda_ms(
+            lambda: bt.bucketed_exact_topk(q, keys, K_PATH), reps=10),
+        "bucket_family_kernel_C_same_inputs_ms": c_ms,
+        "bucket_family_library_f32_matmul_topk_ms": c_mm + c_topk,
+        "bucket_glue_invert_pairs_ms": cuda_ms(
+            lambda: bt.invert_pairs(st["ids"], nb, P_MAX), reps=10),
+        # the host read alone: an empty overflow list brought to the host
+        "bucket_overflow_host_read_ms": cuda_ms(lambda: lost.nonzero(),
+                                                reps=20),
+        "bucket_live_slots": n_live,
+        "bucket_overflow_pairs": CHUNK * K_PATH - n_live})
+    print(json.dumps({"detail_ms": detail}), flush=True)
     return kernels
 
 
@@ -538,7 +1010,12 @@ def main() -> int:
         fail("main-path graph has the wrong size")
 
     errs = phase_kernel_checks(rng, dev, graph)
-    launches = phase_main_path(dev, ds, graph, params)
+    launches, keys = phase_main_path(dev, ds, graph, params)
+    launches.update(phase_exact_tier(dev, params, keys))
+    phase_huge_k(dev, graph, params)
+    phase_int8(dev, params, keys)
+    del keys
+    torch.cuda.empty_cache()
     phase_small_agreement(dev)
     phase_cli(dev)
     kernels = phase_timing(dev, graph, errs, launches)

@@ -1,4 +1,5 @@
-"""Carry parameters from the JAX package into the port."""
+"""Carry parameters and the retrieval library from the JAX package into the
+port."""
 
 from __future__ import annotations
 
@@ -25,3 +26,29 @@ def params_from_jax(params: dict, device: str | torch.device = "cuda"
             "(LoRA factors: ROADMAP.md queue 1, 'Edge model core')")
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
             for k, v in params.items()}
+
+
+def resources_from_jax(resource_keys, resource_values,
+                       device: str | torch.device = "cuda") -> tuple:
+    """Turn the JAX package's retrieval library (``resource_keys`` and
+    ``resource_values`` of an edge model, as numpy arrays) into f32 tensors
+    on ``device``: the ``resources`` argument of the port's ``generate``."""
+    dev = resolve_device(device)
+    keys = np.array(resource_keys, dtype=np.float32)
+    values = np.array(resource_values, dtype=np.float32)
+    if keys.ndim != 2 or values.ndim != 2 or len(keys) != len(values):
+        raise ValueError(f"library keys {keys.shape} and values "
+                         f"{values.shape} must be 2-d with equal rows")
+    return torch.from_numpy(keys).to(dev), torch.from_numpy(values).to(dev)
+
+
+def int8_keys_from_jax(table, device: str | torch.device = "cuda"
+                       ) -> torch.Tensor:
+    """Carry a key table pre-quantized by the JAX package's
+    ``quantize_keys_i8`` (a numpy int8 array) to ``device``, for
+    ``cosine_topk(score_dtype="int8")``."""
+    table = np.array(table)     # a writable copy: jax arrays export read-only
+    if table.dtype != np.int8 or table.ndim != 2:
+        raise ValueError(f"expected a 2-d int8 table, got {table.dtype} "
+                         f"{table.shape}")
+    return torch.from_numpy(table).to(resolve_device(device))

@@ -1,6 +1,6 @@
 // CSR segment sums for the LightGCN propagation (kernels A and B).
 //
-// Replaces, from ragraph_tpu/ops/pallas_segment.py:
+// Replaces these kernels of ragraph_tpu/ops/pallas_segment.py:
 //   A: _packed_scan_w_kernel (via sorted_segment_sum_packed_w and
 //      gather_scale_segsum), together with the XLA row gather `table[idx]`
 //      and the prefix-difference lookup `_packed_boundary`;

@@ -28,10 +28,9 @@
 // query, one lane per range) under the same tie rule. The score matrix
 // never exists in device memory.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "rg_tile.cuh"
 
 namespace {
 
@@ -39,41 +38,14 @@ constexpr int kBQ = 64;        // queries per block
 constexpr int kBR = 64;        // keys per tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kNegInf = -3.0e38f;
+using rg::fma4;
+using rg::kFull;
+using rg::kNegInf;
 
 __host__ __device__ inline size_t smem_bytes(int e, int k) {
   const size_t ld = (size_t)e + 4;
   return sizeof(float) * (2 * kBQ * ld + kBQ * (kBR + 1)) +
          (sizeof(float) + sizeof(int)) * (size_t)kBQ * k + sizeof(int) * kBR;
-}
-
-// Load `rows` rows of E bf16 values (starting at global row g0, rows at or
-// past `limit` read as zero) into f32 shared memory with row stride E + 4.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ g,
-                                          float* s, long long g0, int rows,
-                                          long long limit, int e) {
-  const int chunks = e / 8;
-  const int ld = e + 4;
-  for (int t = threadIdx.x; t < rows * chunks; t += kThreads) {
-    const int r = t / chunks;
-    const int c = t - r * chunks;
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (g0 + r < limit) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(g + (g0 + r) * e + c * 8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]);
-      const float2 b = __bfloat1622float2(h[1]);
-      const float2 cc = __bfloat1622float2(h[2]);
-      const float2 d = __bfloat1622float2(h[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(cc.x, cc.y, d.x, d.y);
-    }
-    float* dst = s + r * ld + c * 8;
-    *reinterpret_cast<float4*>(dst) = lo;
-    *reinterpret_cast<float4*>(dst + 4) = hi;
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -102,7 +74,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int ty = tid / 16;  // queries 4*ty .. 4*ty+3
   const int tx = tid % 16;  // keys tx, tx+16, tx+32, tx+48
 
-  load_rows(q, qs, q0, kBQ, n_q, e);
+  rg::load_rows<kThreads>(q, qs, q0, kBQ, n_q, e);
   for (int t = tid; t < kBQ * k; t += kThreads) {
     ls[t] = kNegInf;
     li[t] = 0;
@@ -110,7 +82,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   for (long long r0 = r_begin; r0 < r_end; r0 += kBR) {
-    load_rows(keys, ks, r0, kBR, r_end, e);
+    rg::load_rows<kThreads>(keys, ks, r0, kBR, r_end, e);
     for (int t = tid; t < kBR; t += kThreads) {
       const long long gr = r0 + t;
       kv[t] = gr < r_end && (valid == nullptr || valid[gr] != 0);
@@ -133,12 +105,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) fma4(acc[i][j], a[i], b[j]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)

@@ -15,8 +15,8 @@ device of its graph arrays. Where the JAX package asks "is the backend a
 TPU", this one asks "is the graph on CUDA": on the CPU both pick the
 scatter reduction and f32.
 
-Not ported yet (ROADMAP.md): training (``cal_loss``, dropout, noise), LoRA,
-the huge-k threshold fusion and the multi-chip paths.
+Not ported yet (ROADMAP.md): training (``cal_loss``, dropout, noise), LoRA
+and the multi-chip paths.
 """
 
 from __future__ import annotations
@@ -36,11 +36,14 @@ from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig,
 from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
 from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
 from ragraph_tpu_torch.ops.similarity import l2_normalize
-from ragraph_tpu_torch.ops.topk import cosine_topk, topk_gather
+from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
+from ragraph_tpu_torch.ops.topk import (cosine_topk, quantize_keys_i8,
+                                        topk_gather)
 from ragraph_tpu_torch.rag.augmentation import augment_features
 
-# _fuse_rag needs the huge-k threshold branch (not ported) when
-# k * emb_size exceeds this, as in the JAX package.
+# _fuse_rag leaves the (chunk, k, E) index gather for the k-th-score
+# threshold and a membership matmul when k * emb_size exceeds this, as in
+# the JAX package. Module-level so that a test can make it small.
 _BIG_K_ELEMS = 1 << 20
 
 # Per-dataset RAG knobs (reference modules/RAGraph.py:33-85).
@@ -335,24 +338,43 @@ class TemporalLightGCN:
     def _fuse_rag(self, query_emb, res_emb, resources=None):
         """Cosine top-k over the library and the weighted fusion of the
         retrieved values' mean, chunked over the queries at ``rag_chunk``
-        (else ``batch_size``) so no ``(N, R)`` score matrix exists."""
+        (else ``batch_size``) so no ``(N, R)`` score matrix exists.
+
+        Two strategies per chunk. Small ``k``: top-k indices, a
+        ``(chunk, k, E)`` gather and its mean. Huge ``k`` (koubei/taobao
+        vanilla, ``retrieve_num=100000``), where the index tensor and its
+        gather would not fit: the k-th score of each row is the threshold,
+        membership is ``scores >= kth``, and the mean is a ``(chunk, R)``
+        0/1 matrix times the values over the member count. The two agree
+        up to exact score ties at the k-th boundary.
+        """
         cfg = self.cfg
         res_keys, res_values = (resources if resources is not None
                                 else (self.resource_keys,
                                       self.resource_values))
         k = min(cfg.retrieve_num, res_keys.shape[0])
         qn, e = query_emb.shape
-        if k * e > _BIG_K_ELEMS:
-            raise NotImplementedError(
-                f"retrieve_num={cfg.retrieve_num} needs the huge-k "
-                "threshold fusion, which is not ported yet (ROADMAP.md "
-                "queue 1, 'Main-path ops': ops/selection.py)")
         chunk = min(cfg.rag_chunk or cfg.batch_size, qn)
         keys_n = l2_normalize(res_keys)
+        big_k = k * e > _BIG_K_ELEMS
+        # per-library work happens once, outside the chunk loop: the bf16
+        # cast of the selection tier and the int8 quantization
+        if big_k and cfg.selection_dtype == "bf16":
+            keys_n = keys_n.to(torch.bfloat16)
+        elif cfg.retrieve_dtype == "int8" and not big_k:
+            keys_n = quantize_keys_i8(keys_n, normalized=True)
         means = []
         for s in range(0, qn, chunk):
-            _, idx = cosine_topk(query_emb[s:s + chunk], keys_n, k,
-                                 keys_normalized=True,
+            qc = query_emb[s:s + chunk]
+            if big_k:
+                # bf16 keys give bf16 scores and the 16-bit selection
+                scores = l2_normalize(qc).to(keys_n.dtype) @ keys_n.T
+                member = scores >= rowwise_kth_largest(scores, k)
+                count = member.sum(dim=1, keepdim=True)
+                total = member.to(res_values.dtype) @ res_values
+                means.append(total.float() / count.clamp(min=1))
+                continue
+            _, idx = cosine_topk(qc, keys_n, k, keys_normalized=True,
                                  score_dtype=cfg.retrieve_dtype)
             means.append(topk_gather(res_values, idx).mean(dim=1))
         rag_emb = torch.cat(means, dim=0)

@@ -1,0 +1,423 @@
+"""Two-phase exact top-k: a sweep of bucket maxima, then a rescore of the
+candidates (counterpart of ``ragraph_tpu/ops/bucket_topk.py``).
+
+**Phase 1 (kernel D)**: the scores of every query against every key, bf16
+inputs and f32 sums, reduced at once to the maximum of each bucket of 128
+consecutive keys. The ``(Q, R)`` scores are never stored; the result is
+``(R/128, Q)``.
+
+**Glue (kernel E, then PyTorch)**: each query's ``k`` best buckets. The
+``k`` largest bucket maxima are ``k`` distinct keys, so the ``k``-th largest
+score is at least the ``k``-th largest bucket maximum ``t``; every key of the
+true top-``k`` scores at least ``t`` and so does its bucket's maximum: **the
+true top-k all lie in the top-k buckets ranked by their maximum** (under
+exact score ties a key of a dropped bucket with an equal score may be
+swapped in, which changes indices and never the scores). The ``Q*k``
+(query, bucket) pairs are then inverted into per-bucket query lists of at
+most ``p_max`` entries by a stable sort on the bucket id.
+
+**Phase 2 (kernel F)**: exact scores of each bucket's listed queries against
+its 128 keys, ``(R/128, p_max, 128)`` panels. Pairs beyond ``p_max`` (many
+queries wanting one bucket, e.g. identical queries) are scored by a gather
+in PyTorch, only when there are any; finding that out costs one host read
+per call.
+
+**Phase 3 (PyTorch, then kernel G)**: the panels are scattered into a
+``(Q, k*128)`` candidate matrix and kernel G takes each row's top-``k``; a
+candidate's key index follows from its bucket id and lane.
+
+The scores are those of ``topk(q.bf16 @ keys.bf16.T)`` with f32 sums: phase 2
+repeats phase 1's sums term by term (``csrc/rg_tile.cuh``), and the plain
+versions below add in the same order (:func:`_fma_chain`), so a wrapper
+gives the same bits on the CPU and on the card.
+
+Each kernel has a plain PyTorch version here (``*_plain``). A wrapper runs
+it only for tensors on the CPU; for CUDA tensors it launches the kernel
+(``csrc/bucket_topk.cu``) or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ragraph_tpu_torch import native
+from ragraph_tpu_torch.ops.csr_segment import _check_cuda
+
+NEG_INF = -3.0e38
+LANE = 128    # bucket width
+MAX_K = 128   # kernels E and G keep their lists in shared memory
+MAX_E = 256
+_SMEM = 200_000   # shared memory a block of E, F or G may ask for, in bytes
+_Q_CHUNK = 4096   # queries per pass; the p_max capacity is per pass
+_FALLBACK_PAIRS = 4096   # overflow pairs scored per gather
+
+
+def _fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_c a[..., c] * b[..., c]`` in f32, added in ascending ``c`` into
+    one accumulator that starts at 0: the kernels' order. The inputs hold
+    bf16 values, whose products are exact in f32, so a fused and an unfused
+    multiply-add give the same bits."""
+    a, b = a.float(), b.float()
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                      dtype=torch.float32, device=a.device)
+    for c in range(a.shape[-1]):
+        acc.addcmul_(a[..., c], b[..., c])
+    return acc
+
+
+def _valid_u8(valid_mask, n_r: int, device) -> torch.Tensor | None:
+    if valid_mask is None:
+        return None
+    valid = valid_mask.to(device=device, dtype=torch.bool).contiguous()
+    if valid.shape != (n_r,):
+        raise ValueError(f"valid_mask must be ({n_r},), got "
+                         f"{tuple(valid.shape)}")
+    return valid
+
+
+def _check_qk(name: str, queries: torch.Tensor, keys: torch.Tensor) -> None:
+    """The bf16 ``(Q, E)`` / ``(R, E)`` pair that kernels D and F take."""
+    _check_cuda(name, queries=(queries, torch.bfloat16, 2),
+                keys=(keys, torch.bfloat16, 2))
+    e = queries.shape[1]
+    if keys.shape[1] != e:
+        raise ValueError(f"{name}: keys {tuple(keys.shape)} do not match "
+                         f"queries {tuple(queries.shape)}")
+    if e % 8 or not 0 < e <= MAX_E:
+        raise ValueError(f"{name}: width must be a multiple of 8 and at "
+                         f"most {MAX_E}, got {e}")
+
+
+def _check_k(name: str, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name} takes 1 <= k <= {MAX_K}, got k={k}")
+
+
+# ---- phase 1: kernel D ------------------------------------------------------
+
+def bucket_max_plain(keys: torch.Tensor, queries: torch.Tensor,
+                     valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of kernel D: the ``(R, Q)`` scores in full, invalid
+    rows and the last bucket's padding at ``-3e38``, then the maximum over
+    each group of 128 rows."""
+    n_r, n_q = keys.shape[0], queries.shape[0]
+    nb = -(-n_r // LANE)
+    scores = _fma_chain(keys.to(torch.bfloat16)[:, None, :],
+                        queries.to(torch.bfloat16)[None, :, :])
+    if valid_mask is not None:
+        scores = torch.where(valid_mask.bool()[:, None], scores, NEG_INF)
+    pad = nb * LANE - n_r
+    if pad:
+        scores = torch.cat([scores, scores.new_full((pad, n_q), NEG_INF)])
+    return scores.view(nb, LANE, n_q).amax(dim=1)
+
+
+def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
+               valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Bucket maxima ``(ceil(R/128), Q)`` f32 of bf16 ``keys (R, E)`` against
+    bf16 ``queries (Q, E)``; a bucket without a valid key holds ``-3e38``."""
+    if keys.device.type == "cpu":
+        return bucket_max_plain(keys, queries, valid_mask)
+    name = "bucket_max"
+    _check_qk(name, queries, keys)
+    n_r, n_q = keys.shape[0], queries.shape[0]
+    valid = _valid_u8(valid_mask, n_r, keys.device)
+    out = torch.empty((-(-n_r // LANE), n_q), dtype=torch.float32,
+                      device=keys.device)
+    if out.numel() == 0:
+        return out
+    rc = native.lib().rg_bucket_max(
+        keys.data_ptr(), queries.data_ptr(),
+        valid.data_ptr() if valid is not None else None, out.data_ptr(),
+        n_r, n_q, keys.shape[1], native.stream_ptr(keys))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+# ---- kernels E and G: top-k by k extractions --------------------------------
+
+def row_topk_plain(x: torch.Tensor, k: int):
+    """Plain version of kernel G: ``k`` rounds of (row maximum, lowest
+    column that reaches it, strike that column to ``-3e38``)."""
+    x = x.float().clone()
+    col = torch.arange(x.shape[1], device=x.device)[None, :]
+    vals, idxs = [], []
+    for _ in range(k):
+        cur = x.amax(dim=1, keepdim=True)
+        pos = torch.where(x >= cur, col, 2 ** 30).amin(dim=1, keepdim=True)
+        vals.append(cur)
+        idxs.append(pos)
+        x = torch.where(col == pos, NEG_INF, x)
+    return torch.cat(vals, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
+
+
+def column_topk_plain(x: torch.Tensor, k: int):
+    """Plain version of kernel E: :func:`row_topk_plain` of the transpose."""
+    return row_topk_plain(x.T, k)
+
+
+def iterative_topk(x: torch.Tensor, k: int):
+    """Exact top-``k`` over axis 1 of ``x (Q, W)`` by ``k`` arg-max
+    extractions in plain PyTorch; ties go to the lowest index."""
+    x = x.clone()
+    col = torch.arange(x.shape[1], device=x.device)[None, :]
+    vals, idxs = [], []
+    for _ in range(k):
+        pos = x.argmax(dim=1, keepdim=True)
+        vals.append(torch.gather(x, 1, pos))
+        idxs.append(pos)
+        x = torch.where(col == pos, NEG_INF, x)
+    return torch.cat(vals, dim=1), torch.cat(idxs, dim=1).to(torch.int32)
+
+
+def _topk_outputs(n_q: int, k: int, device):
+    return (torch.empty((n_q, k), dtype=torch.float32, device=device),
+            torch.empty((n_q, k), dtype=torch.int32, device=device))
+
+
+def column_topk(x: torch.Tensor, k: int):
+    """Exact top-``k`` over axis 0 of every column of ``x (R, Q)``.
+
+    Returns ``(vals (Q, k) f32, idx (Q, k) int32)`` sorted descending, ties
+    to the lowest row; once a column has nothing above ``-3e38`` left its
+    slots hold ``(-3e38, 0)``. Values must be at least ``-3e38``.
+    """
+    _check_k("column_topk", k)
+    if x.device.type == "cpu":
+        return column_topk_plain(x, k)
+    name = "column_topk"
+    x = x.float().contiguous()
+    _check_cuda(name, x=(x, torch.float32, 2))
+    n_r, n_q = x.shape
+    vals, idx = _topk_outputs(n_q, k, x.device)
+    if n_q == 0:
+        return vals, idx
+    # warps that share a column block's rows: 32 lists of k entries each
+    n_split = next(s for s in (32, 16, 8, 4) if 32 * s * k * 8 <= _SMEM)
+    rc = native.lib().rg_column_topk(x.data_ptr(), vals.data_ptr(),
+                                     idx.data_ptr(), n_r, n_q, k, n_split,
+                                     native.stream_ptr(x))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return vals, idx
+
+
+def row_topk(x: torch.Tensor, k: int):
+    """Exact top-``k`` over axis 1 of ``x (Q, W)``: the contract of
+    :func:`column_topk` along rows, ties to the lowest column."""
+    _check_k("row_topk", k)
+    if x.device.type == "cpu":
+        return row_topk_plain(x, k)
+    name = "row_topk"
+    x = x.float().contiguous()
+    _check_cuda(name, x=(x, torch.float32, 2))
+    n_q, w = x.shape
+    if not 0 < w * 4 <= _SMEM:
+        raise ValueError(f"{name}: a row of {w} values does not fit the "
+                         f"kernel's shared memory ({_SMEM // 4} at most)")
+    vals, idx = _topk_outputs(n_q, k, x.device)
+    if n_q == 0:
+        return vals, idx
+    warps = max(1, min(8, _SMEM // (4 * w)))
+    rc = native.lib().rg_row_topk(x.data_ptr(), vals.data_ptr(),
+                                  idx.data_ptr(), n_q, w, k, warps,
+                                  native.stream_ptr(x))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return vals, idx
+
+
+# ---- phase 2: kernel F ------------------------------------------------------
+
+def bucket_rescore_plain(assign: torch.Tensor, queries: torch.Tensor,
+                         keys: torch.Tensor,
+                         valid_mask: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """Plain version of kernel F: gather each slot's query row (zeros for an
+    empty slot) and each bucket's keys, score, mask."""
+    nb, p_max = assign.shape
+    n_q, e = queries.shape
+    n_r = keys.shape[0]
+    q = torch.cat([queries.to(torch.bfloat16),
+                   queries.new_zeros((1, e), dtype=torch.bfloat16)])
+    ids = assign.long()
+    ids = torch.where((ids >= 0) & (ids < n_q), ids, n_q)
+    rows = torch.arange(nb * LANE, device=keys.device)
+    live = rows < n_r
+    if valid_mask is not None:
+        live = live & valid_mask.bool()[rows.clamp(max=n_r - 1)]
+    kb = keys.to(torch.bfloat16)[rows.clamp(max=n_r - 1)].view(nb, LANE, e)
+    sc = _fma_chain(q[ids][:, :, None, :], kb[:, None, :, :])
+    return torch.where(live.view(nb, 1, LANE), sc, NEG_INF)
+
+
+def bucket_rescore(assign: torch.Tensor, queries: torch.Tensor,
+                   keys: torch.Tensor,
+                   valid_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Score panels ``(nb, P, 128)`` f32: slot ``p`` of bucket ``b`` holds
+    the scores of query ``assign[b, p]`` against the bucket's 128 keys. An
+    id outside ``[0, Q)`` marks an empty slot, which holds 0; an invalid key
+    (or one past ``R`` in the last bucket) holds ``-3e38`` in every slot."""
+    if keys.device.type == "cpu":
+        return bucket_rescore_plain(assign, queries, keys, valid_mask)
+    name = "bucket_rescore"
+    _check_qk(name, queries, keys)
+    _check_cuda(name, assign=(assign, torch.int32, 2))
+    nb, p_max = assign.shape
+    n_r, e = keys.shape
+    if assign.device != keys.device:
+        raise ValueError(f"{name}: assign is on {assign.device}, not "
+                         f"{keys.device}")
+    if nb != -(-n_r // LANE):
+        raise ValueError(f"{name}: assign has {nb} buckets, the keys have "
+                         f"{-(-n_r // LANE)}")
+    valid = _valid_u8(valid_mask, n_r, keys.device)
+    out = torch.empty((nb, p_max, LANE), dtype=torch.float32,
+                      device=keys.device)
+    if out.numel() == 0:
+        return out
+    rc = native.lib().rg_bucket_rescore(
+        assign.data_ptr(), queries.data_ptr(), keys.data_ptr(),
+        valid.data_ptr() if valid is not None else None, out.data_ptr(),
+        nb, p_max, queries.shape[0], n_r, e, native.stream_ptr(keys))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+# ---- the glue ---------------------------------------------------------------
+
+def invert_pairs(bucket_ids: torch.Tensor, nb: int, p_max: int):
+    """Turn each query's bucket list ``(Q, k)`` (an id of ``nb`` marks an
+    unused slot) into per-bucket query lists.
+
+    Returns ``(assign (nb, p_max) int32, slot (nb, p_max) int64, over)``:
+    ``assign[b]`` lists the first ``p_max`` queries that want bucket ``b``
+    (``Q`` in an empty slot), ``slot`` says which of the query's ``k``
+    bucket slots each entry fills, and ``over = (query, bucket, slot)``
+    holds the pairs past ``p_max``.
+    """
+    q_len, k = bucket_ids.shape
+    dev = bucket_ids.device
+    n_pairs = q_len * k
+    ar = torch.arange(n_pairs, device=dev)
+    pair_b = bucket_ids.reshape(-1).long()
+    order = torch.argsort(pair_b, stable=True)
+    sb = pair_b[order]
+    sq, ss = order // k, order % k
+    # first occurrence of each bucket in the sorted pair list
+    first = torch.full((nb + 1,), n_pairs, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, sb, ar, "amin")
+    rank = ar - first[sb]
+    real = sb < nb
+    kept = real & (rank < p_max)
+    # a dump row and a dump column take every write that is not kept (the
+    # unused slots and the overflow), duplicates land only there
+    col = torch.where(kept, rank, p_max)
+    assign = torch.full((nb + 1, p_max + 1), q_len, dtype=torch.int32,
+                        device=dev)
+    assign[sb, col] = torch.where(kept, sq, q_len).to(torch.int32)
+    slot = torch.zeros((nb + 1, p_max + 1), dtype=torch.int64, device=dev)
+    slot[sb, col] = ss
+    lost = (real & ~kept).nonzero().squeeze(1)   # the one host read
+    return (assign[:nb, :p_max].contiguous(), slot[:nb, :p_max].contiguous(),
+            (sq[lost], sb[lost], ss[lost]))
+
+
+def _rescore_pairs(cand, pairs, q_in, k_in, valid) -> None:
+    """Score the overflow ``pairs`` by gathering each pair's 128 keys, and
+    write the rows into ``cand (Q + 1, k, 128)``."""
+    n_r = k_in.shape[0]
+    lane = torch.arange(LANE, device=k_in.device)
+    for s in range(0, pairs[0].numel(), _FALLBACK_PAIRS):
+        fq, fb, fs = (p[s:s + _FALLBACK_PAIRS] for p in pairs)
+        rows = fb[:, None] * LANE + lane[None, :]
+        live = rows < n_r
+        rows = rows.clamp(max=n_r - 1)
+        if valid is not None:
+            live = live & valid[rows]
+        sc = _fma_chain(q_in[fq][:, None, :], k_in[rows])
+        cand[fq, fs] = torch.where(live, sc, NEG_INF)
+
+
+def bucket_candidates(q_in: torch.Tensor, k_in: torch.Tensor, k: int,
+                      valid: torch.Tensor | None, p_max: int):
+    """Phases 1 and 2 and the glue around them, for bf16 ``q_in (Q, E)`` and
+    ``k_in (R, E)`` with at least ``k`` buckets.
+
+    Returns what each kernel of the path reads or writes: the bucket maxima
+    ``bm (nb, Q)``, the per-bucket query lists ``assign (nb, p_max)``, each
+    query's bucket list ``bucket_ids (Q, k)`` (``nb`` in an unused slot) and
+    the candidate scores ``cand (Q, k*128)``, slot ``s`` of a row holding the
+    128 scores of the query's ``s``-th bucket (``-3e38`` where there is
+    none).
+    """
+    q_len = q_in.shape[0]
+    nb = -(-k_in.shape[0] // LANE)
+    bm = bucket_max(k_in, q_in, valid)                     # (nb, Q)
+    bvals, bucket_ids = column_topk(bm, k)                 # (Q, k)
+    # fewer than k non-empty buckets: the exhausted tail repeats bucket 0;
+    # mark those slots unused so that no bucket is scattered twice
+    bucket_ids = torch.where(bvals <= NEG_INF, nb, bucket_ids)
+    assign, slot, over = invert_pairs(bucket_ids, nb, p_max)
+
+    panels = bucket_rescore(assign, q_in, k_in, valid)     # (nb, P, 128)
+
+    # row Q of the candidates takes the empty slots' panels
+    cand = torch.full((q_len + 1, k, LANE), NEG_INF, dtype=torch.float32,
+                      device=q_in.device)
+    cand[assign.reshape(-1).long(), slot.reshape(-1)] = \
+        panels.reshape(-1, LANE)
+    if over[0].numel():
+        _rescore_pairs(cand, over, q_in, k_in, valid)
+    return bm, assign, bucket_ids, cand[:q_len].reshape(q_len, k * LANE)
+
+
+def bucketed_exact_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
+                        valid_mask: torch.Tensor | None = None,
+                        p_max: int = 32):
+    """Exact top-``k`` of already L2-normalised ``queries (Q, E)`` against
+    ``keys_n (R, E)``, both scored in bf16 with f32 sums (see module doc).
+
+    ``valid_mask (R,)`` bool: invalid rows never surface. ``p_max`` is the
+    per-bucket capacity of phase 2 before the gather fallback.
+
+    Returns ``(scores (Q, k) f32, indices (Q, k) int32)`` sorted descending.
+    The scores are always exact; indices may differ from a full sort only
+    under exact score ties. Slots beyond the valid rows hold ``(-inf, 0)``.
+    On the card ``k <= 128``, ``E <= 256`` and ``E % 8 == 0``.
+    """
+    _check_k("bucketed_exact_topk", k)
+    q_len = queries.shape[0]
+    r_len = keys_n.shape[0]
+    if q_len > _Q_CHUNK:
+        outs = [bucketed_exact_topk(queries[i:i + _Q_CHUNK], keys_n, k,
+                                    valid_mask, p_max)
+                for i in range(0, q_len, _Q_CHUNK)]
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+    dev = queries.device
+    q_in = queries.to(torch.bfloat16).contiguous()
+    k_in = keys_n.to(torch.bfloat16).contiguous()
+    valid = _valid_u8(valid_mask, r_len, dev)
+    nb = -(-r_len // LANE)
+    if nb < k:
+        # tiny library: the dense exact path is already cheap
+        scores = q_in.float() @ k_in.float().T
+        if valid is not None:
+            scores = torch.where(valid[None, :], scores, -torch.inf)
+        s, i = torch.topk(scores, min(k, r_len), dim=1)
+        pad = k - s.shape[1]
+        s = torch.nn.functional.pad(s, (0, pad), value=-torch.inf)
+        i = torch.nn.functional.pad(i, (0, pad), value=0)
+        return s, torch.where(torch.isinf(s), 0, i).to(torch.int32)
+
+    bucket_ids, cand = bucket_candidates(q_in, k_in, k, valid, p_max)[-2:]
+    vals, pos = row_topk(cand, k)
+    g_bucket = torch.gather(bucket_ids, 1, (pos // LANE).long())
+    g_idx = g_bucket * LANE + pos % LANE
+    # exhausted slots: an in-range index and -inf, as the masked exact sort
+    dead = vals <= NEG_INF
+    return (torch.where(dead, -torch.inf, vals),
+            torch.where(dead, 0, g_idx).to(torch.int32))

@@ -4,24 +4,47 @@ Dispatch follows the JAX package:
 
 - ``"exact"``: f32 matmul, ``-inf`` for invalid rows, ``torch.topk``;
 - ``"pallas"``: the exact fused kernel (:mod:`.fused_retrieval`);
+- ``"bucket"``: the two-phase exact kernels (:mod:`.bucket_topk`);
 - ``"approx"``: on the TPU ``lax.approx_max_k``, a TPU PartialReduce with no
   GPU counterpart; here it answers exactly through the fused kernel;
 - ``"auto"``: exact below :data:`AUTO_APPROX_THRESHOLD` rows, above it
   ``"bucket"`` when ``recall_target >= 1`` and ``"approx"`` otherwise.
 
-``"bucket"`` and ``score_dtype="int8"`` are not ported yet (ROADMAP.md,
-queue 2 kernels 2-5 and queue 1 "Serving tiers").
+``score_dtype="int8"`` scores symmetric int8 quantizations of the normalised
+rows (:func:`_int8_topk`), optionally followed by an exact rescore of
+``k + rescore_pad`` candidates.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ragraph_tpu_torch.ops.bucket_topk import bucketed_exact_topk
 from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 
 # Library size above which "auto" leaves the exact sort.
 AUTO_APPROX_THRESHOLD = 32_768
+
+# Largest width whose int8 dot products, summed in f32, are still exact
+# integers: 127 * 127 * E < 2**24.
+INT8_MAX_E = 1040
+
+
+def _quantize_i8(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 quantization of L2-normalised rows (scale 127)."""
+    return torch.clamp(torch.round(x.float() * 127.0),
+                       -127, 127).to(torch.int8)
+
+
+def quantize_keys_i8(keys: torch.Tensor,
+                     normalized: bool = False) -> torch.Tensor:
+    """Pre-quantize a key table for ``cosine_topk(score_dtype="int8")``.
+
+    Quantizing the ``(R, E)`` table is a full pass over it, so serving
+    quantizes once per library build and passes the int8 table as ``keys``.
+    """
+    return _quantize_i8(keys if normalized else l2_normalize(keys))
 
 
 def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
@@ -30,17 +53,39 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
                 keys_normalized: bool = False,
                 method: str = "auto",
                 recall_target: float = 0.99,
-                score_dtype: str = "input"):
+                score_dtype: str = "input",
+                rescore_pad: int = 0,
+                rescore_keys: torch.Tensor | None = None):
     """Top-k cosine ``(scores, indices)`` of ``queries (Q, E)`` against
-    ``keys (R, E)``, each ``(Q, k)`` (see module doc for ``method``)."""
-    if score_dtype == "int8":
-        raise NotImplementedError(
-            "score_dtype='int8' is not ported yet (ROADMAP.md queue 1, "
-            "'Serving tiers': the int8 scoring path of ops/topk.py)")
-    if score_dtype != "input":
-        raise ValueError(f"unknown score_dtype {score_dtype!r}")
+    ``keys (R, E)``, each ``(Q, k)`` (see module doc for ``method``).
+
+    ``score_dtype="int8"`` is only valid with ``"approx"`` or ``"exact"``
+    (the others promise exact bf16 scores). ``keys`` may then be a table
+    from :func:`quantize_keys_i8`. ``rescore_pad > 0`` fetches
+    ``k + rescore_pad`` candidates by their int8 scores, rescores them at
+    full precision and returns the true top-k of that set; with an int8
+    ``keys`` table the full-precision rows come from ``rescore_keys``
+    (same rows; normalised iff ``keys_normalized``). Without a rescore the
+    scores are the quantized approximations.
+    """
     q = queries if queries_normalized else l2_normalize(queries)
-    kk = keys if keys_normalized else l2_normalize(keys)
+    if rescore_keys is not None and (keys.dtype != torch.int8
+                                     or not rescore_pad):
+        raise ValueError("rescore_keys is only meaningful with "
+                         "pre-quantized int8 keys and rescore_pad > 0")
+    if keys.dtype == torch.int8:
+        # pre-quantized table from quantize_keys_i8 (already normalised)
+        if score_dtype != "int8":
+            raise ValueError("int8 keys require score_dtype='int8'")
+        if rescore_pad and rescore_keys is None:
+            raise ValueError("rescore_pad needs full-precision rows; "
+                             "pass the float table as rescore_keys (or "
+                             "pass float keys to quantize per call)")
+        kk = keys
+    else:
+        kk = keys if keys_normalized else l2_normalize(keys)
+    if rescore_keys is not None and not keys_normalized:
+        rescore_keys = l2_normalize(rescore_keys)
     if method == "auto":
         if keys.shape[0] < AUTO_APPROX_THRESHOLD:
             method = "exact"
@@ -48,10 +93,19 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
             method = "bucket"
         else:
             method = "approx"
+    if score_dtype == "int8":
+        if method not in ("approx", "exact"):
+            raise ValueError(
+                f"score_dtype='int8' breaks method={method!r}'s exact-"
+                "score contract; use method='approx' or 'exact'")
+        return _int8_topk(q, kk, k, valid_mask, rescore_pad, rescore_keys)
+    if score_dtype != "input":
+        raise ValueError(f"unknown score_dtype {score_dtype!r}")
+    if rescore_pad:
+        raise ValueError("rescore_pad is only meaningful with "
+                         "score_dtype='int8'")
     if method == "bucket":
-        raise NotImplementedError(
-            "method='bucket' is not ported yet (ROADMAP.md queue 2: the "
-            "bucket top-k kernels of ops/bucket_topk.py)")
+        return bucketed_exact_topk(q, kk, k, valid_mask=valid_mask)
     if method in ("pallas", "approx"):
         return fused_cosine_topk(q, kk, k, valid_mask=valid_mask)
     if method != "exact":
@@ -60,6 +114,39 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
     if valid_mask is not None:
         scores = torch.where(valid_mask[None, :].bool(), scores, -torch.inf)
     return torch.topk(scores, k, dim=1)
+
+
+def _int8_topk(q: torch.Tensor, kk: torch.Tensor, k: int, valid_mask,
+               rescore_pad: int, rescore_keys: torch.Tensor | None = None):
+    """Int8-scored top-k, with an optional exact rescore of the candidates.
+
+    ``q`` / ``kk`` are already L2-normalised (``kk`` may be int8 already).
+    The s8 x s8 -> s32 product of the JAX package is an f32 matmul of the
+    cast tables here: sums of products of values in [-127, 127] are exact
+    integers in f32 up to ``E = 1040``, and wider rows raise. Both
+    ``"approx"`` and ``"exact"`` take an exact ``torch.topk`` of the int8
+    scores (the TPU's approximate top-k has no GPU counterpart), so the
+    caller's method and recall target change nothing here.
+    """
+    if q.shape[1] > INT8_MAX_E:
+        raise ValueError(f"int8 scoring sums exactly in f32 only up to a "
+                         f"width of {INT8_MAX_E}, got {q.shape[1]}")
+    ki = kk if kk.dtype == torch.int8 else _quantize_i8(kk)
+    scores = (_quantize_i8(q).float() @ ki.float().T) \
+        * (1.0 / (127.0 * 127.0))
+    if valid_mask is not None:
+        scores = torch.where(valid_mask[None, :].bool(), scores, -torch.inf)
+    if not rescore_pad:
+        return torch.topk(scores, k, dim=1)
+    kc = min(k + rescore_pad, kk.shape[0])   # small libraries
+    cand = torch.topk(scores, kc, dim=1).indices
+    rows = (kk if rescore_keys is None else rescore_keys)[cand]  # (Q, kc, E)
+    sc = (q.to(rows.dtype).float()[:, None, :] * rows.float()).sum(dim=-1)
+    if valid_mask is not None:
+        # candidates are only invalid when a query has < kc valid rows
+        sc = torch.where(valid_mask.bool()[cand], sc, -torch.inf)
+    vals, pos = torch.topk(sc, k, dim=1)
+    return vals, torch.gather(cand, 1, pos)
 
 
 def topk_gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,266 @@
+"""The port's two-phase exact bucket top-k against the JAX package (its
+Pallas kernels in interpret mode). On CPU tensors the port's wrappers run
+their plain versions; the glue between the phases is the code the card
+runs too."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ragraph_tpu.ops import bucket_topk as jbt
+from ragraph_tpu.ops import topk as jtopk
+from ragraph_tpu_torch import ops as tops
+from ragraph_tpu_torch.ops import bucket_topk as tbt
+from ragraph_tpu_torch.ops import topk as ttopk
+
+# About 2 f32 ulp at scores near 1. The port adds the exact bf16 products in
+# one fixed order; the CPU matmul behind the JAX side's interpret mode adds
+# them in another, so scores can differ in the last bit
+# (tests/test_bucket_topk.py states the same bound for the JAX package
+# against its own dense reference).
+TOL = 3e-7
+
+
+def _unit(rng, n, e):
+    x = rng.normal(size=(n, e)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _assert_topk_close(s, i, want_s, want_i, live=None):
+    """Scores within TOL; where indices differ, the two picks' scores are
+    within TOL of each other (a tie, or a last-bit difference)."""
+    s, i = np.asarray(s), np.asarray(i)
+    want_s, want_i = np.asarray(want_s), np.asarray(want_i)
+    if live is None:
+        live = np.ones(s.shape, bool)
+    assert np.array_equal(np.isinf(s), np.isinf(want_s))
+    np.testing.assert_allclose(s[live], want_s[live], rtol=0, atol=TOL)
+    mism = (i != want_i) & live
+    if mism.any():
+        assert np.abs(s[mism] - want_s[mism]).max() <= TOL
+
+
+@pytest.mark.parametrize("fn", ["column", "row"])
+def test_extraction_topk_matches_jax_with_ties(fn):
+    rng = np.random.default_rng(5)
+    k = 4
+    if fn == "column":
+        x = rng.integers(0, 7, size=(300, 130)).astype(np.float32)
+        want = jbt.column_topk(jnp.asarray(x), k, block_q=128, interpret=True)
+        got = tbt.column_topk(torch.from_numpy(x), k)
+        ref = tbt.iterative_topk(torch.from_numpy(x.T.copy()), k)
+    else:
+        x = rng.integers(0, 7, size=(70, 260)).astype(np.float32)
+        want = jbt.row_topk(jnp.asarray(x), k, block_q=64, interpret=True)
+        got = tbt.row_topk(torch.from_numpy(x), k)
+        ref = tbt.iterative_topk(torch.from_numpy(x), k)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    for g, w, r in zip(got, want, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("fn", ["column", "row"])
+def test_extraction_topk_exhausted_slots_repeat_position_zero(fn):
+    """Fewer than k values above -3e38: the tail is (-3e38, 0) on both
+    sides, which the bucket glue's sentinel logic relies on."""
+    x = np.full((6, 5), tbt.NEG_INF, np.float32)
+    x[3, 1], x[4, 1], x[1, 2] = 0.5, 0.25, 0.5
+    if fn == "row":
+        x = np.ascontiguousarray(x.T)
+        want = jbt.row_topk(jnp.asarray(x), 3, block_q=8, interpret=True)
+        got = tbt.row_topk(torch.from_numpy(x), 3)
+    else:
+        want = jbt.column_topk(jnp.asarray(x), 3, block_q=128,
+                               interpret=True)
+        got = tbt.column_topk(torch.from_numpy(x), 3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(got[1].numpy()[1], [3, 4, 0])
+    assert (got[0].numpy()[0] == np.float32(tbt.NEG_INF)).all()
+
+
+def test_iterative_topk_matches_jax():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(32, 640)).astype(np.float32)
+    want_v, want_i = jbt.iterative_topk(jnp.asarray(x), 7)
+    v, i = tbt.iterative_topk(torch.from_numpy(x), 7)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+
+
+@pytest.mark.parametrize("r_len,masked", [(1024, False), (1000, True)])
+def test_phase1_bucket_max_matches_jnp_reference(r_len, masked):
+    rng = np.random.default_rng(r_len)
+    q, keys = _unit(rng, 20, 32), _unit(rng, r_len, 32)
+    valid = rng.random(r_len) < 0.6 if masked else np.ones(r_len, bool)
+    valid[128:256] = not masked         # one bucket with no valid key
+    nb = -(-r_len // 128)
+    scores = np.asarray(jnp.dot(jnp.asarray(keys).astype(jnp.bfloat16),
+                                jnp.asarray(q).astype(jnp.bfloat16).T,
+                                preferred_element_type=jnp.float32))
+    scores = np.where(valid[:, None], scores, np.float32(tbt.NEG_INF))
+    scores = np.pad(scores, ((0, nb * 128 - r_len), (0, 0)),
+                    constant_values=np.float32(tbt.NEG_INF))
+    want = scores.reshape(nb, 128, 20).max(axis=1)
+    got = tbt.bucket_max(torch.from_numpy(keys).bfloat16(),
+                         torch.from_numpy(q).bfloat16(),
+                         torch.from_numpy(valid))
+    assert got.shape == (nb, 20)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=TOL)
+    if masked:
+        assert (got.numpy()[1] == np.float32(tbt.NEG_INF)).all()
+
+
+def test_phase2_rescore_matches_jnp_reference():
+    rng = np.random.default_rng(7)
+    n_q, r_len, e, p_max = 12, 300, 16, 5
+    q, keys = _unit(rng, n_q, e), _unit(rng, r_len, e)
+    valid = rng.random(r_len) < 0.8
+    nb = -(-r_len // 128)
+    assign = rng.integers(0, n_q + 3, size=(nb, p_max)).astype(np.int32)
+    got = tbt.bucket_rescore(torch.from_numpy(assign),
+                             torch.from_numpy(q).bfloat16(),
+                             torch.from_numpy(keys).bfloat16(),
+                             torch.from_numpy(valid)).numpy()
+    assert got.shape == (nb, p_max, 128)
+    scores = np.asarray(jnp.dot(jnp.asarray(q).astype(jnp.bfloat16),
+                                jnp.asarray(keys).astype(jnp.bfloat16).T,
+                                preferred_element_type=jnp.float32))
+    for b in range(nb):
+        for p in range(p_max):
+            for lane in (0, 17, 43, 127):
+                r = b * 128 + lane
+                if r >= r_len or not valid[r]:
+                    want = np.float32(tbt.NEG_INF)
+                elif assign[b, p] >= n_q:
+                    want = 0.0           # an empty slot of a valid key
+                else:
+                    want = scores[assign[b, p], r]
+                assert abs(got[b, p, lane] - want) <= TOL, (b, p, lane)
+
+
+def test_invert_pairs_lists_each_pair_once():
+    """Every (query, bucket) pair lands either in the bucket's list, with
+    its slot, or in the overflow; unused slots (id nb) land nowhere."""
+    rng = np.random.default_rng(11)
+    n_q, k, nb, p_max = 40, 5, 6, 8
+    ids = np.stack([rng.permutation(nb + 1)[:k] for _ in range(n_q)])
+    assign, slot, over = tbt.invert_pairs(torch.from_numpy(ids).int(), nb,
+                                          p_max)
+    assert assign.shape == slot.shape == (nb, p_max)
+    assert assign.dtype == torch.int32
+    seen = set()
+    for b in range(nb):
+        for p in range(p_max):
+            qid = int(assign[b, p])
+            if qid < n_q:
+                assert ids[qid, int(slot[b, p])] == b
+                seen.add((qid, b))
+    for qid, b, s in zip(*(t.tolist() for t in over)):
+        assert ids[qid, s] == b
+        assert (qid, b) not in seen
+        seen.add((qid, b))
+    want = {(qi, int(b)) for qi in range(n_q) for b in ids[qi] if b < nb}
+    assert seen == want
+    assert len(over[0]) == sum(max(0, int((ids == b).sum()) - p_max)
+                               for b in range(nb))
+
+
+CASES = {
+    # name: (Q, R, E, k, n_valid, identical queries, p_max)
+    "multiple-of-block": (32, 2048, 64, 10, None, False, 32),
+    "unpadded": (13, 3000, 48, 4, None, False, 32),
+    "valid-mask": (16, 2048, 32, 5, 700, False, 32),
+    "overflow-identical-queries": (64, 2048, 32, 6, None, True, 4),
+    "fewer-nonempty-buckets-than-k": (16, 600, 64, 8, 200, False, 32),
+    "fewer-valid-rows-than-k": (9, 700, 16, 6, 4, False, 32),
+    "fewer-buckets-than-k": (8, 200, 16, 10, None, False, 32),
+    "more-than-4096-queries": (4100, 1024, 16, 3, None, False, 32),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bucketed_exact_topk_matches_jax(case):
+    q_len, r_len, e, k, n_valid, identical, p_max = CASES[case]
+    rng = np.random.default_rng(len(case))
+    q, keys = _unit(rng, q_len, e), _unit(rng, r_len, e)
+    if identical:
+        q = np.repeat(q[:1], q_len, axis=0)
+    valid = None
+    if n_valid is not None:
+        valid = np.arange(r_len) < n_valid      # the first rows: few buckets
+    want_s, want_i = jbt.bucketed_exact_topk(
+        jnp.asarray(q), jnp.asarray(keys), k,
+        valid_mask=None if valid is None else jnp.asarray(valid),
+        block_q=256, block_r=512, p_max=p_max, interpret=True)
+    s, i = tbt.bucketed_exact_topk(
+        torch.from_numpy(q), torch.from_numpy(keys), k,
+        valid_mask=None if valid is None else torch.from_numpy(valid),
+        p_max=p_max)
+    assert s.shape == i.shape == (q_len, k)
+    assert s.dtype == torch.float32 and i.dtype == torch.int32
+    s, i = s.numpy(), i.numpy()
+    live = np.isfinite(s)
+    n_live = min(k, r_len if n_valid is None else n_valid)
+    assert (live.sum(axis=1) == n_live).all()
+    # exhausted slots: (-inf, 0); the JAX dense branch (fewer buckets than
+    # k) leaves a padding row's index there, so only live slots compare
+    assert (s[~live] == -np.inf).all() and (i[~live] == 0).all()
+    _assert_topk_close(s, i, want_s, want_i, live)
+    assert i[live].max() < (r_len if n_valid is None else n_valid)
+    for row, row_live in zip(i, live):
+        assert len(set(row[row_live])) == row_live.sum()
+    # and against the dense sort of the same scores
+    dense = tbt._fma_chain(torch.from_numpy(q).bfloat16()[:, None, :],
+                           torch.from_numpy(keys).bfloat16()[None, :, :])
+    if valid is not None:
+        dense[:, ~torch.from_numpy(valid)] = -torch.inf
+    ref = torch.sort(dense, dim=1, descending=True, stable=True).values
+    np.testing.assert_array_equal(s, ref[:, :k].numpy())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_cosine_topk_bucket_matches_jax(masked, monkeypatch):
+    rng = np.random.default_rng(21)
+    q = rng.normal(size=(24, 32)).astype(np.float32)      # not normalised
+    keys = rng.normal(size=(1500, 32)).astype(np.float32)
+    valid = rng.random(1500) < 0.7 if masked else None
+    want_s, want_i = jtopk.cosine_topk(
+        jnp.asarray(q), jnp.asarray(keys), 10, method="bucket",
+        valid_mask=None if valid is None else jnp.asarray(valid))
+    kw = dict(valid_mask=None if valid is None else torch.from_numpy(valid))
+    s, i = ttopk.cosine_topk(torch.from_numpy(q), torch.from_numpy(keys), 10,
+                             method="bucket", **kw)
+    # 1e-6: the two packages normalise the rows with different roundings
+    # before the bf16 cast; indices may swap only across such differences
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=1e-6)
+    mism = i.numpy() != np.asarray(want_i)
+    assert mism.mean() < 0.05
+    if masked:
+        assert valid[i.numpy()].all()
+    # "auto" asks for the bucket kernels when exact results are wanted at
+    # scale (the threshold made small for the test)
+    monkeypatch.setattr(ttopk, "AUTO_APPROX_THRESHOLD", 1000)
+    s2, i2 = ttopk.cosine_topk(torch.from_numpy(q), torch.from_numpy(keys),
+                               10, recall_target=1.0, **kw)
+    np.testing.assert_array_equal(s2.numpy(), s.numpy())
+    np.testing.assert_array_equal(i2.numpy(), i.numpy())
+
+
+def test_limits_and_exports():
+    x = torch.zeros(4, 8)
+    for fn in (tbt.column_topk, tbt.row_topk):
+        with pytest.raises(ValueError, match="k <= 128"):
+            fn(x, tbt.MAX_K + 1)
+    with pytest.raises(ValueError, match="k <= 128"):
+        tbt.bucketed_exact_topk(x, x, 0)
+    with pytest.raises(ValueError, match="valid_mask"):
+        tbt.bucketed_exact_topk(x, torch.zeros(300, 8), 2,
+                                valid_mask=torch.ones(5, dtype=torch.bool))
+    assert tops.bucketed_exact_topk is tbt.bucketed_exact_topk
+    assert tops.column_topk is tbt.column_topk
+    assert tops.row_topk is tbt.row_topk
+    assert tbt.NEG_INF == jbt.NEG_INF and tbt.LANE == jbt.LANE

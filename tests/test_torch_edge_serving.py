@@ -252,15 +252,21 @@ def test_unported_paths_raise(data, monkeypatch):
     _, tm, _, tparams = _models(data, "RAGraphEdge", "vanilla",
                                 retrieve_num=100000)
     tm.make_resource_graph(*tm.generate(tparams))
-    # k = R = 192 here; shrink the huge-k limit below k * emb_size
+    index_path = tm.generate(tparams)
+    # k = R = 192 here; shrink the huge-k limit below k * emb_size: the
+    # threshold fusion, ported since, takes every row as the index path does
     monkeypatch.setattr(t_ragraph_edge, "_BIG_K_ELEMS", 1000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.generate(tparams)             # huge-k threshold fusion
+    for got, want in zip(tm.generate(tparams), index_path):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=F32_ATOL)
     monkeypatch.undo()
     tm.cfg = dataclasses.replace(tm.cfg, retrieve_num=10,
                                  retrieve_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert all(torch.isfinite(t).all() for t in tm.generate(tparams))
+    # a score type that cosine_topk does not know
+    tm.cfg = dataclasses.replace(tm.cfg, retrieve_dtype="bf16")
+    with pytest.raises(ValueError, match="unknown score_dtype"):
         tm.generate(tparams)
+    tm.cfg = dataclasses.replace(tm.cfg, retrieve_dtype="input")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.forward(tparams, training=True)
     tm.phase, tm.cfg = "finetune", dataclasses.replace(tm.cfg, use_lora=True)

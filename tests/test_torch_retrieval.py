@@ -131,12 +131,22 @@ def test_cosine_topk_dispatch(monkeypatch):
     monkeypatch.setattr(ttopk, "AUTO_APPROX_THRESHOLD", 0)
     s_auto, _ = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid)
     assert (s_auto[:, 2:] == tret.NEG_INF).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.cosine_topk(q, keys, 4, recall_target=1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.cosine_topk(q, keys, 4, method="bucket")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttopk.cosine_topk(q, keys, 4, score_dtype="int8")
+    # exact results asked for above the threshold, or "bucket" by name: the
+    # two-phase kernels, whose exhausted slots hold (-inf, 0)
+    s_exact, i_exact = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid,
+                                         method="exact")
+    for kw in (dict(recall_target=1.0), dict(method="bucket")):
+        s, i = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid, **kw)
+        assert torch.isinf(s[:, 2:]).all() and (i[:, 2:] == 0).all()
+        assert i.dtype == torch.int32
+        # bf16 scores against f32 scores of unit rows
+        torch.testing.assert_close(s[:, :2], s_exact[:, :2], rtol=0,
+                                   atol=2e-2)
+    # int8 scoring: above the threshold through "approx"
+    s, i = ttopk.cosine_topk(q, keys, 4, valid_mask=~invalid,
+                             score_dtype="int8")
+    assert torch.isinf(s[:, 2:]).all() and (i[:, :2] < 2).all()
+    torch.testing.assert_close(s[:, :2], s_exact[:, :2], rtol=0, atol=5e-2)
     vals = torch.arange(64 * 2, dtype=torch.float32).reshape(64, 2)
     assert ttopk.topk_gather(vals, torch.tensor([[1, 3]])).shape == (1, 2, 2)
 
