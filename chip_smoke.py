@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its serving path on one GPU.
+"""Build the port's CUDA kernels and drive its serving, ops and training
+paths on one GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc;
-2. hold each of the seven kernels against its plain PyTorch version on the
+2. hold each of the nine kernels against its plain PyTorch version on the
    card, at the main path's shapes and at ragged small shapes;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
@@ -18,11 +19,24 @@ Phases (any failure exits non-zero):
    ``vanilla`` config, ``retrieve_num=100000`` against a 524,288-row
    library, both ``selection_dtype`` values, held against ``torch.topk``)
    and the int8 tier (one chunk, pre-quantized table, ``rescore_pad=22``);
-5. run a small graph through the serving path on the card and on the CPU
-   (plain versions) and require the embeddings to agree; run the
-   ``vanilla`` CLI on the synthetic stream on the card;
-6. time each kernel, its plain version and one PyTorch library call that
-   computes the same function, beside its bound.
+   then the ops path on the 2^21 edges: ``sorted_segment_sum`` (the prefix
+   sum, kernel H) against kernel B's sums and ``segsum_packed2_w`` (kernel
+   I) against kernel A's;
+5. run a small graph through the serving path and through one training
+   step of each phase on the card and on the CPU (plain versions) and
+   require embeddings, losses and gradients to agree; run the ``vanilla``,
+   ``pretrain`` and ``finetune`` CLI on the synthetic stream on the card;
+6. train at full width (U = I = 131,072, 2^21 edges, D = 64, 3 layers,
+   batch 2,048, edge dropout 0.5): ``EdgeTrainer.train`` in the pretrain
+   phase for whole epochs of 512 steps, then one stage of
+   ``staged_finetune`` on 2^15 interactions (16 steps an epoch, each
+   retrieving for all 262,144 nodes through kernel C); the loss must be
+   finite and fall, every gradient finite and non-zero, and the launches
+   per step as counted;
+7. time each kernel, its plain version and one PyTorch library call that
+   computes the same function, beside its bound; time a pretrain step and a
+   finetune step (forward, backward, optimizer apart) beside the same step
+   on plain PyTorch ops.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -58,6 +72,23 @@ TOL_SCORE = 1e-5            # exact bf16 products, f32 sums of <= 256 terms
 # order, the plain versions add them in that order too, and E and G only
 # select.
 TOL_BUCKET = 0.0
+# Kernel H against its plain version (torch.cumsum in f32): two f32 sums of
+# up to 2^21 terms in different orders, so the error follows the size of the
+# prefix: rtol times max|prefix|. torch.cumsum itself is about 3e-5 of the
+# largest prefix away from a float64 sum at 2^21 rows; H is held to the
+# float64 sum ten times closer.
+TOL_PREFIX = (1e-4, 0.0)
+TOL_PREFIX_F64 = (1e-5, 0.0)
+# The prefix-difference segment sum against kernel B's direct sums: each
+# bound reads a prefix that is within 1e-5 of the largest prefix's size, so
+# the error of their difference is absolute in that size, twice over.
+TOL_PREFIX_DIFF = 2e-5
+# One training step on the card against the same step on the CPU, f32:
+# |err| <= atol + rtol * max|CPU value|, per gradient.
+TOL_GRAD = (1e-4, 1e-9)
+PRETRAIN_EPOCHS = 2         # of 512 steps
+FT_ROWS = 1 << 15           # a stage's finetune split: 16 steps an epoch
+FT_EPOCHS = 2
 K_PATH = 10                 # EdgeModelConfig().retrieve_num
 P_MAX = 32                  # bucketed_exact_topk's default capacity
 
@@ -214,6 +245,165 @@ def segsum_checks(rng, dev, n, e, d, hub):
     msgs = t(rng.normal(size=(e, d)), torch.float32)
     got = cs.sorted_segment_sum_grad(msgs, ip, t(recv, torch.int32))
     check_close(f"B {tag}", got, cs.segment_sum_plain(msgs, ip), TOL_SEGSUM)
+
+
+def pack_half_split(msgs, block):
+    """``(n, D)`` rows into the ``(n/2, 2D)`` half-split layout kernel I
+    reads: packed row ``c*B + i`` = ``[row c*2B + i | row c*2B + B + i]``."""
+    import torch
+    n, d = msgs.shape
+    m3 = msgs.reshape(n // (2 * block), 2, block, d)
+    return torch.cat([m3[:, 0], m3[:, 1]], dim=2).reshape(n // 2, 2 * d) \
+        .contiguous()
+
+
+def random_indptr(rng, dev, n_edges, n_segs, hub):
+    """CSR bounds of ``n_edges`` sorted random segment ids; with more
+    segments than edges most are empty or hold one row; ``hub`` puts a
+    third of the edges into one segment."""
+    import torch
+    ids = np.sort(rng.integers(0, n_segs, n_edges))
+    if hub:
+        ids[: n_edges // 3] = n_segs // 2
+        ids = np.sort(ids)
+    indptr = np.zeros(n_segs + 1, np.int64)
+    np.add.at(indptr[1:], ids, 1)
+    return torch.from_numpy(np.cumsum(indptr).astype(np.int32)).to(dev)
+
+
+def prefix_checks(gen, dev, n, d, dtype):
+    """Kernel H against its plain version and a float64 sum, inclusive and
+    exclusive, with the grand total."""
+    import torch
+
+    from ragraph_tpu_torch.ops import prefix_sum as ps
+    x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    exact = torch.cumsum(x.double(), 0)
+    tag = f"N={n} D={d} {str(dtype).split('.')[-1]}"
+    worst = 0.0
+    for exclusive in (False, True):
+        got, total = ps.prefix_sum(x, exclusive)
+        torch.cuda.synchronize()
+        ref, ref_total = ps.prefix_sum_plain(x, exclusive)
+        what = "exclusive" if exclusive else "inclusive"
+        worst = max(worst, check_close(f"H {what} {tag}", got, ref,
+                                       TOL_PREFIX))
+        ref64 = (torch.cat([torch.zeros_like(exact[:1]), exact[:-1]])
+                 if exclusive else exact)
+        check_close(f"H {what} {tag} against float64", got.double(), ref64,
+                    TOL_PREFIX_F64)
+        del ref, ref64
+        # the total is held to the size of the largest prefix too
+        scale = float(exact.abs().max())
+        t_err = float((total.double() - exact[-1:]).abs().max())
+        if t_err > TOL_PREFIX_F64[0] * scale \
+                or float((total - ref_total).abs().max()) \
+                > TOL_PREFIX[0] * scale:
+            fail(f"H total {tag}: error {t_err:.3e} at prefix size "
+                 f"{scale:.3e}")
+    return worst
+
+
+def prefix_segsum_checks(rng, gen, dev, n, n_segs, d, hub):
+    """``sorted_segment_sum`` (kernel H and the boundary difference)
+    against the plain segment sum: empty and single-row segments, a hub."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    from ragraph_tpu_torch.ops import prefix_sum as ps
+    ip = random_indptr(rng, dev, n, n_segs, hub)
+    msgs = torch.randn(n, d, generator=gen, device=dev)
+    got = ps.sorted_segment_sum(msgs, ip[:-1], ip[1:])
+    torch.cuda.synchronize()
+    ref = cs.segment_sum_plain(msgs, ip)
+    scale = float(torch.cumsum(msgs.double(), 0).abs().max())
+    err = float((got - ref).abs().max())
+    tol = TOL_PREFIX_DIFF * max(scale, 1.0)
+    empty = (ip[1:] == ip[:-1])
+    ok = err <= tol and bool((got[empty] == 0).all())
+    print(f"  H segment sum n={n} segs={n_segs} D={d} hub={hub}: "
+          f"max_abs_err={err:.3e} tol={tol:.3e} (prefix size {scale:.3e}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("sorted_segment_sum disagrees with the plain segment sum")
+
+
+def packed_checks(rng, gen, dev, n, n_segs, d, block, hub, dtype):
+    """Kernel I against its plain version, with and without the bf16
+    switch, f32 or bf16 rows."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    ip = random_indptr(rng, dev, n, n_segs, hub)
+    msgs = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    w = torch.rand(n, generator=gen, device=dev)
+    msgs2 = pack_half_split(msgs, block)
+    tag = (f"n={n} segs={n_segs} D={d} B={block} hub={hub} "
+           f"{str(dtype).split('.')[-1]}")
+    for bf16 in (True, False):
+        got = cs.segsum_packed2_w(msgs2, w, ip, n, block=block, bf16=bf16)
+        torch.cuda.synchronize()
+        ref = cs.segsum_packed2_w_plain(msgs2, w, ip, n, block, bf16)
+        check_close(f"I bf16={bf16} {tag}", got, ref, TOL_SEGSUM)
+
+
+def hi_kernel_checks(rng, dev, graph):
+    """Kernels H and I at the path's shape (2^21 x 64 messages, packed
+    (2^20, 128)) and at ragged shapes."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    errs = {}
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    g = graph
+    n = g.num_edges
+    errs["H"] = prefix_checks(gen, dev, n, D, torch.float32)
+    prefix_checks(gen, dev, n, D, torch.bfloat16)
+    torch.cuda.empty_cache()
+    # N off every block size (chunk 128, 8 chunks a block, 32 spans), one
+    # row, one column, odd widths, D = 2 and D = 512
+    for n_rows, d in ((1, 1), (127, 3), (129, 2), (1000, 8), (4099, 512),
+                      (300001, 33), (32769, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            prefix_checks(gen, dev, n_rows, d, dtype)
+    for n_rows, n_segs, d, hub in ((1000, 300, 16, False),
+                                   (1000, 4000, 8, False),
+                                   (50001, 700, 64, True), (5, 9, 2, False),
+                                   (4099, 64, 512, True)):
+        prefix_segsum_checks(rng, gen, dev, n_rows, n_segs, d, hub)
+
+    table = torch.randn(g.num_nodes, D, generator=gen, device=dev)
+    w = g.edge_norm * 0.5 + g.time_norm * 0.5
+    msgs2 = pack_half_split(table[g.senders.long()], 512)
+    if tuple(msgs2.shape) != (n // 2, 2 * D):
+        fail(f"packed messages have shape {tuple(msgs2.shape)}")
+    for bf16 in (True, False):
+        got = cs.segsum_packed2_w(msgs2, w, g.recv_indptr, n, bf16=bf16)
+        torch.cuda.synchronize()
+        ref = cs.segsum_packed2_w_plain(msgs2, w, g.recv_indptr, n, 512,
+                                        bf16)
+        err = check_close(f"I bf16={bf16} main shape", got, ref, TOL_SEGSUM)
+        if bf16:
+            errs["I"] = err
+    del msgs2, got, ref
+    torch.cuda.empty_cache()
+    for n_e, n_segs, d, block, hub, dtype in (
+            (512, 96, 16, 128, False, torch.float32),
+            (2048, 5000, 2, 512, False, torch.float32),   # empty, one-row
+            (4096, 40, 512, 256, True, torch.float32),    # a hub, D = 512
+            (1024, 3, 130, 128, True, torch.bfloat16),
+            (6144, 700, 64, 1024, False, torch.bfloat16)):
+        packed_checks(rng, gen, dev, n_e, n_segs, d, block, hub, dtype)
+    for bad_n, bad_block in ((1000, 512), (1024, 0)):
+        try:
+            cs.segsum_packed2_w(torch.zeros(bad_n // 2, 8, device=dev),
+                                torch.zeros(bad_n, device=dev),
+                                torch.zeros(2, dtype=torch.int32, device=dev),
+                                bad_n, block=bad_block)
+        except ValueError:
+            continue
+        fail(f"segsum_packed2_w took n={bad_n} block={bad_block}")
+    return errs
 
 
 def check_same(name, got, ref):
@@ -432,6 +622,8 @@ def phase_kernel_checks(rng, dev, graph):
                                     device=dev))
     errs["C"] = check_topk(f"C Q={CHUNK} R={g.num_nodes} k=10", q, keys, 10)
     errs.update(bucket_kernel_checks(gen, dev, q, keys))
+    del q, keys
+    errs.update(hi_kernel_checks(rng, dev, graph))
 
     for n, e, d, hub in ((37, 1001, 64, False), (300, 4099, 18, True),
                          (5, 3, 2, False), (64, 777, 130, True),
@@ -762,6 +954,136 @@ def phase_int8(dev, params, keys):
         fail(f"int8 tier: recall {r_plain} -> {r_rescore}, score error {err}")
 
 
+def phase_ops_path(dev, graph):
+    """The public ops path on the 2^21 edges: ``sorted_segment_sum`` (kernel
+    H, then the boundary difference) against kernel B's sums of the same
+    messages, and ``segsum_packed2_w`` (kernel I) against kernel A's sums
+    over the same edges."""
+    import torch
+
+    from ragraph_tpu_torch import native, ops
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    g = graph
+    n = g.num_edges
+    print(f"phase 4d: ops path, {n} messages x {D}, packed "
+          f"({n // 2}, {2 * D})", flush=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    table = torch.randn(g.num_nodes, D, generator=gen, device=dev)
+    w = g.edge_norm * 0.5 + g.time_norm * 0.5
+    w_send = g.edge_norm_send * 0.5 + g.time_norm_send * 0.5
+    rows = table[g.senders.long()]
+    msgs = rows * w[:, None]
+    msgs2 = pack_half_split(rows, 512)
+    del rows
+    timer = StageTimer()
+    native.reset_launches()
+    by_prefix = timer("sorted_segment_sum", lambda: ops.sorted_segment_sum(
+        msgs, g.recv_indptr[:-1], g.recv_indptr[1:]))
+    by_packed = timer("segsum_packed2_w", lambda: ops.segsum_packed2_w(
+        msgs2, w, g.recv_indptr, n))
+    launches = dict(native.LAUNCHES)
+    for name in ("prefix_sum", "csr_segsum_packed2_w"):
+        if launches.get(name, 0) != 1:
+            fail(f"ops path: kernel {name} launched "
+                 f"{launches.get(name, 0)} times, expected 1")
+    timer("sorted_segment_sum_warm", lambda: ops.sorted_segment_sum(
+        msgs, g.recv_indptr[:-1], g.recv_indptr[1:]))
+    timer("segsum_packed2_w_warm", lambda: ops.segsum_packed2_w(
+        msgs2, w, g.recv_indptr, n))
+    direct = timer("kernel_B_same_messages",
+                   lambda: cs.csr_segment_sum(msgs, g.recv_indptr))
+    fused = timer("kernel_A_same_edges", lambda: cs.gather_scale_segsum(
+        table, w, w_send, g.senders, g.recv_indptr, g.recv_of_send,
+        g.send_indptr, bf16=True))
+    scale = float(torch.cumsum(msgs.double(), 0).abs().max())
+    err = float((by_prefix - direct).abs().max())
+    tol = TOL_PREFIX_DIFF * scale
+    ok = err <= tol and bool(torch.isfinite(by_prefix).all())
+    print(f"  sorted_segment_sum (H) against kernel B: max_abs_err={err:.3e} "
+          f"tol={tol:.3e} = {TOL_PREFIX_DIFF:.0e} x prefix size {scale:.3e}; "
+          f"sums reach {float(direct.abs().max()):.3e} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok or tuple(by_prefix.shape) != (g.num_nodes, D):
+        fail("sorted_segment_sum disagrees with kernel B")
+    check_close("segsum_packed2_w (I) against kernel A", by_packed, fused,
+                TOL_SEGSUM)
+    print(json.dumps({"ops_path_ms": timer.ms, "launches": launches}),
+          flush=True)
+    return launches
+
+
+def fixed_masks(graph, salt, keep):
+    """The hash masks of one salt in both edge orders, on the graph's
+    device: the same bits on the card and on the CPU."""
+    import torch
+
+    from ragraph_tpu_torch.models.edge.base import hash_edge_mask
+    ids = torch.arange(graph.num_edges, device=graph.device)
+    return (hash_edge_mask(salt, ids, keep),
+            hash_edge_mask(salt, graph.send_perm, keep))
+
+
+def loss_and_grads(model, params, batch, masks, generator=None):
+    """One ``cal_loss`` and backward on fresh leaves: the loss and every
+    gradient by parameter name."""
+    from ragraph_tpu_torch.train.trainer import map_params, param_leaves
+    leaves = map_params(lambda t: t.detach().clone().requires_grad_(True),
+                        params)
+    loss, _ = model.cal_loss(leaves, batch, generator, edge_masks=masks)
+    loss.backward()
+    return loss.detach(), {name: t.grad for name, t in param_leaves(leaves)}
+
+
+def phase_small_training_agreement(dev):
+    """One training step of each phase on a small graph: loss and gradients
+    on the card against the same step on CPU tensors (plain versions)."""
+    import torch
+
+    from ragraph_tpu_torch.convert import params_from_jax
+    from ragraph_tpu_torch.data.edgelist import load_edge_dataset
+    from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
+                                               EdgeModelConfig, RAGraphEdge)
+    from ragraph_tpu_torch.train.trainer import map_params
+    print("phase 5: one training step, card against CPU", flush=True)
+    rng = np.random.default_rng(SEED + 7)
+    train, test = make_rows(rng, 256, 256, 4096)
+    ds = load_edge_dataset(train, test, num_users=256, num_items=256)
+    tables = xavier_tables(rng, 256, 256, D)
+    batch = [rng.integers(0, 256, 512) for _ in range(3)]
+    for phase, extra in (("pretrain", {}), ("finetune", {}),
+                         ("finetune", dict(use_lora=True,
+                                           lora_init_scale=1.0,
+                                           lora_rank=8))):
+        cfg = EdgeModelConfig(emb_size=D, segsum_impl="fused",
+                              propagate_dtype="f32", **extra)
+        out, init = [], None
+        for where in (torch.device("cpu"), dev):
+            g = EdgeGraphArrays.from_dataset(ds, where)
+            model = RAGraphEdge(cfg, g, phase=phase)
+            base = params_from_jax(tables, where)
+            if phase == "finetune":
+                model.make_resource_graph(base["user_embedding"],
+                                          base["item_embedding"])
+                # the CPU's initial gate and factors go to the card as data
+                init = init or model.init_params(
+                    torch.Generator(where).manual_seed(SEED),
+                    pretrained_tables=(base["user_embedding"],
+                                       base["item_embedding"]))
+                base = map_params(lambda t: t.to(where), init)
+            b = tuple(torch.from_numpy(a).to(where) for a in batch)
+            out.append(loss_and_grads(
+                model, base, b, fixed_masks(g, 0x9E3779B1, 0.5)))
+        (cl, cg), (gl, gg) = out
+        tag = f"{phase} {extra or ''}".strip()
+        check_close(f"small graph {tag} loss", gl.cpu()[None], cl[None],
+                    TOL_GRAD)
+        for name in cg:
+            if gg[name] is None or float(cg[name].abs().max()) == 0.0:
+                fail(f"small graph {tag}: no gradient for {name}")
+            check_close(f"small graph {tag} grad {name}", gg[name].cpu(),
+                        cg[name], TOL_GRAD)
+
+
 def phase_small_agreement(dev):
     """The same path on a small graph, on the card and on the CPU."""
     import torch
@@ -790,12 +1112,15 @@ def phase_small_agreement(dev):
 
 
 def phase_cli(dev):
-    """The port's ``vanilla`` CLI on the synthetic stream, on the card."""
+    """The port's CLI on the synthetic stream, on the card: ``vanilla`` from
+    given tables, then ``pretrain``, ``finetune`` and ``vanilla`` in order
+    from the tables ``pretrain`` wrote."""
+    import os
     import tempfile
 
     from ragraph_tpu_torch.cli import edge as cli
     from ragraph_tpu_torch.train.checkpoint import save_checkpoint
-    print("phase 5: vanilla CLI on the card (synthetic stream)", flush=True)
+    print("phase 5: CLI on the card (synthetic stream)", flush=True)
     rng = np.random.default_rng(SEED + 5)
     with tempfile.TemporaryDirectory() as tmp:
         save_checkpoint(f"{tmp}/pretrain_RAGraph_SYNTH",
@@ -805,7 +1130,23 @@ def phase_cli(dev):
                                    "--device", str(dev)])
     if len(recalls) != 4 or not np.isfinite(recalls + ndcgs).all():
         fail(f"vanilla CLI: recalls {recalls} ndcgs {ndcgs}")
-    print(f"  recall@20 per stage {recalls}", flush=True)
+    print(f"  vanilla: recall@20 per stage {recalls}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--data-path", "SYNTH", "--save-dir", tmp, "--device",
+                str(dev), "--batch-size", "128", "--epochs", "3"]
+        cli.main(["pretrain"] + args)
+        staged = cli.main(["finetune"] + args)
+        recalls, ndcgs = cli.main(["vanilla"] + args)
+        files = sorted(os.listdir(tmp))
+    want = ["finetune_RAGraph_SYNTH.json", "pretrain_RAGraph_SYNTH.json",
+            "pretrain_RAGraph_SYNTH.pkl"]
+    if files != want:
+        fail(f"CLI wrote {files}, expected {want}")
+    if len(staged.recalls) != 4 or len(recalls) != 4 or not np.isfinite(
+            staged.recalls + staged.ndcgs + recalls + ndcgs).all():
+        fail(f"CLI: finetune {staged.recalls}, vanilla {recalls}")
+    print(f"  pretrain -> finetune: recall@20 per stage {staged.recalls}; "
+          f"vanilla {recalls}", flush=True)
 
 
 def phase_timing(dev, graph, errs, launches):
@@ -815,7 +1156,7 @@ def phase_timing(dev, graph, errs, launches):
     from ragraph_tpu_torch.ops.fused_retrieval import (
         fused_cosine_topk, fused_cosine_topk_plain)
     from ragraph_tpu_torch.ops.similarity import l2_normalize
-    print("phase 6: timing at the main path's shapes", flush=True)
+    print("phase 7: timing at the main path's shapes", flush=True)
     g = graph
     n, e = g.num_nodes, g.num_edges
     gen = torch.Generator(dev).manual_seed(SEED + 4)
@@ -875,6 +1216,63 @@ def phase_timing(dev, graph, errs, launches):
         library_ms=b_lib))
     del msgs
 
+    # H: the exclusive prefix of the 2^21 x 64 f32 messages, as
+    # sorted_segment_sum asks for it
+    from ragraph_tpu_torch.ops import prefix_sum as ps
+    rows = table[g.senders.long()]
+    msgs = rows * w[:, None]
+    h_ms = cuda_ms(lambda: ps.prefix_sum(msgs, True))
+    h_plain = cuda_ms(lambda: ps.prefix_sum_plain(msgs, True), reps=2,
+                      warmup=1)
+    h_lib = cuda_ms(lambda: torch.cumsum(msgs, 0), reps=2, warmup=1)
+    h_bytes = 4 * e * D + 4 * e * D + 4 * D
+    h_ops = e * D
+    kernels.append(dict(
+        name="prefix_sum", route="cuda",
+        source="ragraph_tpu_torch/csrc/prefix_sum.cu",
+        replaces="ragraph_tpu/ops/pallas_segment.py:75",
+        launches=launches.get("prefix_sum", 0),
+        max_abs_err=errs["H"], ms=h_ms, plain_ms=h_plain,
+        bound_ms=max(h_bytes / HBM_BYTES_PER_MS, h_ops / F32_FLOP_PER_MS),
+        bound_by="bytes" if h_bytes / HBM_BYTES_PER_MS
+        >= h_ops / F32_FLOP_PER_MS else "operations",
+        library_ms=h_lib))
+    ip = g.recv_indptr
+    detail_hi = {
+        "H_sorted_segment_sum_with_boundary_difference": cuda_ms(
+            lambda: ps.sorted_segment_sum(msgs, ip[:-1], ip[1:])),
+        "H_inclusive_bf16_input": cuda_ms(
+            lambda: ps.prefix_sum(msgs.to(torch.bfloat16), False)),
+        "B_same_messages": b_ms}
+    del msgs
+
+    # I: the packed (2^20, 128) f32 rows of the same edges, bf16 switch on.
+    # No one PyTorch call computes it; kernel A on the same edges is its
+    # yardstick (it also gathers the rows, which I is handed).
+    msgs2 = pack_half_split(rows, 512)
+    del rows
+    i_ms = cuda_ms(lambda: cs.segsum_packed2_w(msgs2, w, ip, e))
+    i_plain = cuda_ms(lambda: cs.segsum_packed2_w_plain(msgs2, w, ip, e, 512,
+                                                        True), reps=3)
+    i_bytes = 4 * e * D + 4 * e + 4 * (n + 1) + 4 * n * D
+    i_ops = 2 * e * D
+    kernels.append(dict(
+        name="csr_segsum_packed2_w", route="cuda",
+        source="ragraph_tpu_torch/csrc/csr_segment.cu",
+        replaces="ragraph_tpu/ops/pallas_segment.py:302",
+        launches=launches.get("csr_segsum_packed2_w", 0),
+        max_abs_err=errs["I"], ms=i_ms, plain_ms=i_plain,
+        bound_ms=max(i_bytes / HBM_BYTES_PER_MS, i_ops / F32_FLOP_PER_MS),
+        bound_by="bytes" if i_bytes / HBM_BYTES_PER_MS
+        >= i_ops / F32_FLOP_PER_MS else "operations",
+        library_ms=None))
+    detail_hi.update({
+        "I_bf16_rows": cuda_ms(lambda m=msgs2.to(torch.bfloat16):
+                               cs.segsum_packed2_w(m, w, ip, e)),
+        "A_same_edges": a_ms})
+    del msgs2
+    torch.cuda.empty_cache()
+
     # C: one RAG chunk of 2,048 queries against the 262,144-row library
     q = l2_normalize(torch.randn(CHUNK, D, generator=gen, device=dev))
     keys = l2_normalize(torch.randn(n, D, generator=gen, device=dev))
@@ -902,7 +1300,7 @@ def phase_timing(dev, graph, errs, launches):
         >= c_ops / BF16_FLOP_PER_MS else "operations",
         library_ms=c_mm + c_topk))
     detail = {"C_library_f32_matmul": c_mm, "C_library_topk": c_topk,
-              "C_bf16_matmul_bf16_out": c_mm_bf16}
+              "C_bf16_matmul_bf16_out": c_mm_bf16, **detail_hi}
 
     # D-G on the same chunk and library, each on what the bucket path hands
     # it; the family as a whole beside kernel C and the library calls
@@ -971,6 +1369,237 @@ def phase_timing(dev, graph, errs, launches):
     return kernels
 
 
+def check_step(name, trainer, params, batch, gen, want_launches,
+               grad_names):
+    """One ``EdgeTrainer.step`` with the launches counted from zero, then
+    the gradients it left: finite and non-zero for ``grad_names``."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.train.trainer import param_leaves
+    leaves, optimizer = trainer.prepare(params)
+    native.reset_launches()
+    loss, aux = trainer.step(leaves, optimizer, batch, gen)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    for kernel, n in want_launches.items():
+        if launches.get(kernel, 0) != n:
+            fail(f"{name} step: kernel {kernel} launched "
+                 f"{launches.get(kernel, 0)} times, expected {n}")
+    if not math.isfinite(float(loss)):
+        fail(f"{name} step: loss {float(loss)}")
+    norms = {}
+    for leaf, t in param_leaves(leaves):
+        if leaf.split(".")[0] not in grad_names:
+            continue
+        if t.grad is None or not bool(torch.isfinite(t.grad).all()) \
+                or float(t.grad.abs().max()) == 0.0:
+            fail(f"{name} step: gradient of {leaf} missing, non-finite or "
+                 f"all zero")
+        norms[leaf] = float(t.grad.norm())
+    if set(g.split(".")[0] for g in norms) != set(grad_names):
+        fail(f"{name} step: gradients {sorted(norms)}, expected "
+             f"{sorted(grad_names)}")
+    rec = float(aux["rec_loss"])
+    print(f"  {name} step: loss={float(loss):.6f} rec={rec:.6f} "
+          f"launches={launches} grad norms="
+          + json.dumps({k: round(v, 9) for k, v in norms.items()}),
+          flush=True)
+    return launches
+
+
+def finetune_rows(rng):
+    """A stage-sized finetune split and its test rows, after the pretrain
+    rows in time."""
+    t0 = 1_600_000_000 + 30 * 24 * 3600
+    users = rng.integers(0, U, FT_ROWS)
+    items = rng.integers(0, I, FT_ROWS)
+    times = t0 + rng.integers(0, 24 * 3600, FT_ROWS)
+    ft = list(zip(users.tolist(), items.tolist(), times.tolist()))
+    tu = rng.choice(U, U // 8, replace=False)
+    ti = rng.integers(0, I, len(tu))
+    stage = list(zip(tu.tolist(), ti.tolist(),
+                     (t0 + 24 * 3600 + np.arange(len(tu))).tolist()))
+    return ft, stage
+
+
+def phase_training(dev, train_rows, ds, graph):
+    """Training at full width: pretrain epochs through ``EdgeTrainer.train``,
+    then one stage of ``staged_finetune``."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.data.edgelist import load_edge_dataset
+    from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
+                                               EdgeModelConfig, RAGraphEdge,
+                                               staged_finetune)
+    from ragraph_tpu_torch.train.trainer import EdgeTrainer
+    cfg = EdgeModelConfig(emb_size=D, num_layers=3)
+    steps = M // cfg.batch_size
+    print(f"phase 6: training at U = I = {U}, {graph.num_edges} edges, D = "
+          f"{D}, {cfg.num_layers} layers, batch {cfg.batch_size}, "
+          f"edge_dropout {cfg.edge_dropout}: {PRETRAIN_EPOCHS} pretrain "
+          f"epochs of {steps} steps, then one finetune stage", flush=True)
+    log_lines = []
+
+    def log(msg):
+        log_lines.append(msg)
+        print(f"  {msg}", flush=True)
+
+    timer = StageTimer()
+    model = RAGraphEdge(cfg, graph, phase="pretrain")
+    params = model.init_params(torch.Generator(dev).manual_seed(SEED + 10))
+    trainer = EdgeTrainer(model, ds, logger=log)
+    gen = torch.Generator(dev).manual_seed(SEED + 11)
+    first = next(ds.train_batches(cfg.batch_size,
+                                  np.random.default_rng(SEED + 12)))
+    batch = tuple(torch.from_numpy(a).to(dev) for a in first)
+    check_step("pretrain", trainer, params, batch, gen,
+               {"csr_gather_scale_segsum": 2 * cfg.num_layers},
+               ("user_embedding", "item_embedding"))
+
+    native.reset_launches()
+    result = timer("pretrain", lambda: trainer.train(
+        params, gen, num_epochs=PRETRAIN_EPOCHS,
+        rng=np.random.default_rng(SEED + 13)))
+    launches = dict(native.LAUNCHES)
+    # per epoch: 512 steps of 3 forward and 3 backward launches, and the
+    # evaluation's generate (3)
+    want_a = PRETRAIN_EPOCHS * (steps * 2 * cfg.num_layers + cfg.num_layers)
+    if launches.get("csr_gather_scale_segsum", 0) != want_a:
+        fail(f"pretrain: kernel A launched "
+             f"{launches.get('csr_gather_scale_segsum', 0)} times, "
+             f"expected {want_a}")
+    losses = [h["loss"] for h in result.history]
+    if result.epochs_run != PRETRAIN_EPOCHS \
+            or not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"pretrain: losses {losses} are not finite and falling")
+    recall = float(result.best_perform["recall"][0])
+    if not math.isfinite(recall):
+        fail(f"pretrain: best recall {recall}")
+    tables = {k: result.best_params[k].cpu().numpy()
+              for k in ("user_embedding", "item_embedding")}
+    if any(not np.isfinite(t).all() for t in tables.values()) or float(
+            np.abs(tables["user_embedding"]
+                   - params["user_embedding"].cpu().numpy()).max()) == 0.0:
+        fail("pretrain: tables non-finite or unchanged")
+    train_launches = dict(launches)
+
+    # one finetune step apart: launches per step and the gate's gradient
+    rng = np.random.default_rng(SEED + 14)
+    ft_rows, stage_rows = finetune_rows(rng)
+    ft_ds = load_edge_dataset(ft_rows, stage_rows, num_users=U, num_items=I,
+                              phase="finetune")
+    ft_model = RAGraphEdge(cfg, EdgeGraphArrays.from_dataset(ft_ds, dev),
+                           phase="finetune")
+    pre = tuple(torch.from_numpy(tables[k]).to(dev)
+                for k in ("user_embedding", "item_embedding"))
+    ft_model.make_resource_graph(*pre)
+    ft_params = ft_model.init_params(
+        torch.Generator(dev).manual_seed(SEED + 15), pretrained_tables=pre)
+    ft_trainer = EdgeTrainer(ft_model, ft_ds, logger=log)
+    n_chunks = -(-(U + I) // min(cfg.rag_chunk or cfg.batch_size, U + I))
+    check_step("finetune", ft_trainer, ft_params, batch, gen,
+               {"csr_gather_scale_segsum": 2 * cfg.num_layers,
+                "fused_cosine_topk": n_chunks},
+               ("user_embedding", "item_embedding", "gating_weight",
+                "gating_bias"))
+
+    native.reset_launches()
+    staged = timer("staged_finetune_one_stage", lambda: staged_finetune(
+        train_rows, ft_rows, [stage_rows], tables,
+        cfg_factory=lambda phase: cfg, seed=SEED, device=dev,
+        num_epochs=FT_EPOCHS, logger=log,
+        val_rows=[(u, items[0]) for u, items
+                  in ds.test_user_dict.items()]))
+    launches = dict(native.LAUNCHES)
+    ft_steps = FT_ROWS // cfg.batch_size
+    # a step retrieves for every node (128 chunks), and so does each
+    # epoch's evaluation; the two for_tune generates and the library build
+    # propagate without retrieval
+    want = {"fused_cosine_topk": FT_EPOCHS * (ft_steps + 1) * n_chunks,
+            "csr_gather_scale_segsum": 2 * cfg.num_layers + FT_EPOCHS * (
+                ft_steps * 2 * cfg.num_layers + cfg.num_layers),
+            "csr_segment_sum": cfg.num_layers}
+    for kernel, n in want.items():
+        if launches.get(kernel, 0) != n:
+            fail(f"staged finetune: kernel {kernel} launched "
+                 f"{launches.get(kernel, 0)} times, expected {n}")
+    ft_losses = [float(m.split("loss=")[1].split()[0]) for m in log_lines
+                 if m.startswith("epoch") and "loss=" in m][PRETRAIN_EPOCHS:]
+    if len(staged.recalls) != 1 or not np.isfinite(
+            staged.recalls + staged.ndcgs + ft_losses).all() \
+            or len(ft_losses) != FT_EPOCHS:
+        fail(f"staged finetune: recalls {staged.recalls} losses {ft_losses}")
+    print(json.dumps({
+        "training_ms": timer.ms, "pretrain_losses": losses,
+        "pretrain_epoch_train_s": [h["train_time"] for h in result.history],
+        "pretrain_recall@20": recall, "finetune_losses": ft_losses,
+        "finetune_recall@20": staged.recalls[0],
+        "pretrain_launches": train_launches,
+        "staged_launches": launches}), flush=True)
+    return ft_model, ft_params, model, params, batch
+
+
+def time_step(model, params, batch, gen, reps):
+    """Milliseconds of one training step's forward (``cal_loss``), backward
+    and Adam update, each between CUDA events, averaged over ``reps``."""
+    import torch
+
+    from ragraph_tpu_torch.train.trainer import EdgeTrainer
+    trainer = EdgeTrainer(model, None, logger=lambda *_: None)
+    leaves, optimizer = trainer.prepare(params)
+    graph, resources = trainer._graph_and_resources()
+    sums = [0.0, 0.0, 0.0]
+    for rep in range(reps + 1):         # the first pass warms up
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        ev[0].record()
+        loss, _ = model.cal_loss(leaves, batch, gen, graph=graph,
+                                 resources=resources)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        if rep:
+            for j in range(3):
+                sums[j] += ev[j].elapsed_time(ev[j + 1])
+    fwd, bwd, opt = (x / reps for x in sums)
+    return {"forward": fwd, "backward": bwd, "optimizer": opt,
+            "step": fwd + bwd + opt}
+
+
+def phase_step_timing(dev, trained):
+    """A pretrain step and a finetune step beside the same step on plain
+    PyTorch ops: ``index_add_`` propagation in f32 with autograd's backward,
+    and a matmul with ``torch.topk`` for the retrieval."""
+    import dataclasses
+
+    import torch
+
+    from ragraph_tpu_torch.ops import topk
+    ft_model, ft_params, model, params, batch = trained
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    out = {"pretrain_step_ms": time_step(model, params, batch, gen, 10),
+           "finetune_step_ms": time_step(ft_model, ft_params, batch, gen, 3)}
+    threshold = topk.AUTO_APPROX_THRESHOLD
+    for m in (model, ft_model):
+        m.cfg = dataclasses.replace(m.cfg, segsum_impl="scatter",
+                                    propagate_dtype="f32")
+    topk.AUTO_APPROX_THRESHOLD = 1 << 62    # "auto" takes matmul + topk
+    try:
+        out["pretrain_step_plain_ms"] = time_step(model, params, batch, gen,
+                                                  5)
+        out["finetune_step_plain_ms"] = time_step(ft_model, ft_params, batch,
+                                                  gen, 2)
+    finally:
+        topk.AUTO_APPROX_THRESHOLD = threshold
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1001,7 +1630,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train, test = make_rows(rng, U, I, M)
     ds = load_edge_dataset(train, test, num_users=U, num_items=I)
-    del train, test
+    del test
     graph = EdgeGraphArrays.from_dataset(ds, dev)
     params = params_from_jax(xavier_tables(rng, U, I, D), dev)
     print(f"  data_seconds={time.perf_counter() - t0:.1f} "
@@ -1016,9 +1645,15 @@ def main() -> int:
     phase_int8(dev, params, keys)
     del keys
     torch.cuda.empty_cache()
+    launches.update(phase_ops_path(dev, graph))
+    torch.cuda.empty_cache()
     phase_small_agreement(dev)
+    phase_small_training_agreement(dev)
     phase_cli(dev)
+    trained = phase_training(dev, train, ds, graph)
+    del train
     kernels = phase_timing(dev, graph, errs, launches)
+    phase_step_timing(dev, trained)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

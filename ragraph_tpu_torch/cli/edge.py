@@ -1,12 +1,24 @@
 """Edge (recommendation) CLI of the port (counterpart of
 ``ragraph_tpu/cli/edge.py``).
 
-``python -m ragraph_tpu_torch.cli.edge vanilla --data-path SYNTH`` runs the
-training-free staged evaluation (reference ``vanilla_ragraph.py:49-105``)
-from the pretrained tables in ``<save-dir>/pretrain_<model>_<dataset>.pkl``,
-which either package writes. It takes the JAX CLI's flags plus
-``--device`` (default ``cuda``). ``pretrain`` and ``finetune`` are not
-ported yet and exit with an error.
+``python -m ragraph_tpu_torch.cli.edge pretrain|finetune|vanilla`` with the
+JAX CLI's flags plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+PyTorch versions of the kernels):
+
+- ``pretrain`` trains ``--model`` (RAGraph, GraphPro or LightGCN) on the
+  pretrain split and writes the best tables to
+  ``<save-dir>/pretrain_<model>_<dataset>.pkl`` and the best metrics to the
+  ``.json`` of the same name;
+- ``finetune`` runs the staged finetuning from those tables (it pretrains
+  first when they are missing) and writes
+  ``<save-dir>/finetune_<model>_<dataset>.json``; ``--noise``, ``--lora``,
+  ``--stage-ckpt-dir`` and ``--resume`` as in the JAX CLI;
+- ``vanilla`` runs the training-free staged evaluation from the tables.
+
+Either package reads the other's ``pretrain_*.pkl``. Not ported yet, each
+exiting with a pointer to ROADMAP.md: the model zoo (``--model`` beyond the
+three, ``--dynamic``, ``--prompt``), reference ``.pt`` checkpoints and
+``--mesh``.
 
 Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
 ``fine_tune.txt``, ``test_1.txt..test_N.txt`` (N=8 for amazon, else 4);
@@ -16,6 +28,7 @@ Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -28,10 +41,16 @@ from ragraph_tpu_torch.data.edgelist import (load_edge_dataset, merge_rows,
                                              parse_edge_file)
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.device import resolve_device
-from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, RAGraphEdge,
-                                           edge_config_for)
-from ragraph_tpu_torch.train.checkpoint import restore_checkpoint
+from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, GraphPro,
+                                           LightGCNEdge, RAGraphEdge,
+                                           edge_config_for, staged_finetune)
+from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
+                                                restore_checkpoint)
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
+from ragraph_tpu_torch.train.trainer import EdgeTrainer
+
+MODELS = {"RAGraph": RAGraphEdge, "GraphPro": GraphPro,
+          "LightGCN": LightGCNEdge}
 
 
 def build_parser():
@@ -42,7 +61,8 @@ def build_parser():
                    choices=["RAGraph", "GraphPro", "LightGCN", "SGL",
                             "SimGCL", "MixGCF", "GP",
                             "roland", "evolvegcn_h", "evolvegcn_o"],
-                   help="names the pretrained tables to load "
+                   help="RAGraph, GraphPro and LightGCN are ported; the "
+                        "name also picks the tables to load "
                         "(pretrain_<model>_<dataset>)")
     p.add_argument("--dynamic", default=None,
                    choices=["roland", "evolvegcn_h", "evolvegcn_o"])
@@ -122,6 +142,96 @@ def _logger() -> logging.Logger:
     return log
 
 
+def _model_cls(args):
+    if args.model not in MODELS or args.dynamic or args.prompt:
+        raise SystemExit(
+            f"ragraph_tpu_torch.cli.edge: --model {args.model}"
+            + (f" --dynamic {args.dynamic}" if args.dynamic else "")
+            + (f" --prompt {args.prompt}" if args.prompt else "")
+            + " is not yet ported (ROADMAP.md queue 1, item 7: the edge "
+              "model zoo); RAGraph, GraphPro and LightGCN run")
+    return MODELS[args.model]
+
+
+def run_pretrain(args):
+    """Train the model on the pretrain split, evaluate against the
+    validation split, keep the best tables. Returns the checkpoint path."""
+    dev = resolve_device(args.device)
+    log = _logger()
+    model_cls = _model_cls(args)
+    train_rows, val_rows, _, _ = _load_rows(args)
+    ds = load_edge_dataset(train_rows, [(u, i) for (u, i, *_) in val_rows],
+                           hour_interval=args.hour_interval)
+    name = os.path.basename(args.data_path)
+    model = model_cls(_cfg(args, "pretrain", name),
+                      EdgeGraphArrays.from_dataset(ds, dev),
+                      phase="pretrain")
+    params = model.init_params(torch.Generator(dev).manual_seed(args.seed))
+    trainer = EdgeTrainer(model, ds, logger=log.info)
+    result = trainer.train(
+        params, torch.Generator(dev).manual_seed(args.seed + 1),
+        rng=np.random.default_rng(args.seed))
+    keeper = BestCheckpointKeeper(args.save_dir,
+                                  name=f"pretrain_{args.model}_{name}")
+    keeper.update(float(result.best_perform["recall"][0]),
+                  {"user_embedding": result.best_params["user_embedding"],
+                   "item_embedding": result.best_params["item_embedding"]})
+    log.info(f"best recall {result.best_perform['recall'][0]:.5f}; "
+             f"checkpoint {keeper.path}")
+    out = os.path.join(args.save_dir, f"pretrain_{args.model}_{name}.json")
+    with open(out, "w") as f:
+        json.dump({"best_recall": float(result.best_perform["recall"][0]),
+                   "best_ndcg": float(result.best_perform["ndcg"][0])},
+                  f, indent=2)
+    return keeper.path
+
+
+def run_finetune(args):
+    """Staged finetuning from the pretrained tables; returns the
+    :class:`StageResult`."""
+    if args.resume and not args.stage_ckpt_dir:
+        raise SystemExit("--resume needs --stage-ckpt-dir (nowhere to "
+                         "load the staged state from)")
+    if args.pre_model_path and args.pre_model_path.endswith(".pt"):
+        raise SystemExit(
+            "ragraph_tpu_torch.cli.edge: reference .pt checkpoints are not "
+            "yet ported (ROADMAP.md queue 1, item 9: train/torch_import.py)")
+    dev = resolve_device(args.device)
+    log = _logger()
+    model_cls = _model_cls(args)
+    train_rows, val_rows, ft_rows, stage_rows = _load_rows(args)
+    name = os.path.basename(args.data_path)
+
+    if args.pre_model_path:
+        tables = restore_checkpoint(args.pre_model_path)
+    else:
+        default = os.path.join(args.save_dir,
+                               f"pretrain_{args.model}_{name}")
+        if not os.path.exists(default + ".pkl"):
+            log.info("no pretrain checkpoint; running pretrain first")
+            run_pretrain(args)
+        tables = restore_checkpoint(default)
+        log.info(f"loaded pretrain tables from {default}")
+
+    result = staged_finetune(
+        train_rows, ft_rows, stage_rows, tables,
+        cfg_factory=lambda phase: _cfg(args, phase, name),
+        seed=args.seed, device=dev, hour_interval=args.hour_interval,
+        updt_inter=args.updt_inter, num_epochs=args.epochs, logger=log.info,
+        model_cls=model_cls, val_rows=val_rows,
+        checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
+    log.info(f"recalls: {result.recalls}")
+    log.info(f"ndcgs:   {result.ndcgs}")
+    log.info(f"avg recall {result.avg_recall:.5f} "
+             f"avg ndcg {result.avg_ndcg:.5f}")
+    out = os.path.join(args.save_dir, f"finetune_{args.model}_{name}.json")
+    with open(out, "w") as f:
+        json.dump({"recalls": result.recalls, "ndcgs": result.ndcgs,
+                   "avg_recall": result.avg_recall,
+                   "avg_ndcg": result.avg_ndcg}, f, indent=2)
+    return result
+
+
 def run_vanilla(args):
     """Training-free staged eval: per stage, build the graph of all rows so
     far, generate, build the library, generate with RAG, evaluate."""
@@ -164,14 +274,15 @@ def run_vanilla(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mode != "vanilla":
-        raise SystemExit(f"ragraph_tpu_torch.cli.edge: mode {args.mode!r} "
-                         "is not yet ported (ROADMAP.md); only 'vanilla' "
-                         "runs")
     if args.mesh:
         raise SystemExit("ragraph_tpu_torch.cli.edge: --mesh is not yet "
-                         "ported (ROADMAP.md, multi-device)")
-    return run_vanilla(args)
+                         "ported (ROADMAP.md queue 1, item 10: "
+                         "multi-device)")
+    if args.mode == "pretrain":
+        return run_pretrain(args)
+    if args.mode == "vanilla":
+        return run_vanilla(args)
+    return run_finetune(args)
 
 
 if __name__ == "__main__":

@@ -7,25 +7,41 @@ import numpy as np
 import torch
 
 from ragraph_tpu_torch.device import resolve_device
+from ragraph_tpu_torch.nn.lora import LoRAFactors
 
-# The edge-model parameters the port's serving path reads.
+# The edge-model parameters the port reads: four arrays, and the LoRA
+# factors as ``(A, B)`` pairs of arrays.
 EDGE_PARAM_KEYS = ("user_embedding", "item_embedding", "gating_weight",
                    "gating_bias")
+EDGE_LORA_KEYS = ("user_lora", "item_lora")
 
 
 def params_from_jax(params: dict, device: str | torch.device = "cuda"
                     ) -> dict:
     """Turn the JAX package's edge-model params (a dict of numpy arrays,
     e.g. from its pickle checkpoints or ``np.asarray`` of its jax arrays)
-    into f32 tensors on ``device``, under the same keys."""
+    into f32 tensors on ``device``, under the same keys. ``user_lora`` and
+    ``item_lora`` (pairs of arrays ``(A, B)``) become
+    :class:`ragraph_tpu_torch.nn.lora.LoRAFactors`."""
     dev = resolve_device(device)
-    unknown = set(params) - set(EDGE_PARAM_KEYS)
+    unknown = set(params) - set(EDGE_PARAM_KEYS) - set(EDGE_LORA_KEYS)
     if unknown:
-        raise NotImplementedError(
-            f"params {sorted(unknown)} have no counterpart in the port yet "
-            "(LoRA factors: ROADMAP.md queue 1, 'Edge model core')")
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-            for k, v in params.items()}
+        raise ValueError(f"params {sorted(unknown)} are not edge-model "
+                         f"parameters the port knows")
+
+    def put(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    out = {}
+    for k, v in params.items():
+        if k in EDGE_LORA_KEYS:
+            if len(v) != 2:
+                raise ValueError(f"{k} must be a pair (A, B), got "
+                                 f"{len(v)} entries")
+            out[k] = LoRAFactors(put(v[0]), put(v[1]))
+        else:
+            out[k] = put(v)
+    return out
 
 
 def resources_from_jax(resource_keys, resource_values,

@@ -1,16 +1,23 @@
-// CSR segment sums for the LightGCN propagation (kernels A and B).
+// CSR segment sums for the LightGCN propagation (kernels A, B and I).
 //
 // Replaces these kernels of ragraph_tpu/ops/pallas_segment.py:
 //   A: _packed_scan_w_kernel (via sorted_segment_sum_packed_w and
 //      gather_scale_segsum), together with the XLA row gather `table[idx]`
 //      and the prefix-difference lookup `_packed_boundary`;
 //   B: _packed_scan_kernel (via sorted_segment_sum_packed and
-//      sorted_segment_sum_grad), together with `_packed_boundary`.
+//      sorted_segment_sum_grad), together with `_packed_boundary`;
+//   I: _packed_scan_w_kernel with packed_input (via _segsum_packed2_w),
+//      together with `_packed_boundary`.
 //
 // Computes  out[r] = sum_{e in [indptr[r], indptr[r+1])} w[e] * table[idx[e]]
 // (A), or   out[r] = sum_{e in [indptr[r], indptr[r+1])} msgs[e]   (B),
-// accumulated in f32. With a bf16 table, A also rounds w to bf16, so each
-// product is exact in f32 as in the TPU kernel's bf16 matmul.
+// or        out[r] = sum_{e in [indptr[r], indptr[r+1])} w[e] * msg(e)  (I),
+// accumulated in f32. For I the message of edge e lies in a half-split
+// packed (n/2, 2d) matrix: packed row (e / 2B) * B + e % B, half
+// (e / B) % 2, which read as an (n, d) matrix is row 2 * packed row + half:
+// an address computed from e, so I is A's walk with no index array. With
+// bf16 rows, A and I also round w to bf16, so each product is exact in f32
+// as in the TPU kernel's bf16 matmul.
 //
 // What bounds it on an H100: bytes. Per output row the work is one multiply-
 // add per gathered element, far below the 295 operations per byte at which
@@ -51,15 +58,20 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// CH = number of 64-column chunks a lane covers (d <= 64 * CH).
-// GATHER: rows come from src[idx[e]] scaled by w[e] (A); otherwise from
-// src[e] unscaled (B). T is the element type of src.
-template <int CH, bool GATHER, typename T>
+// Where the row of edge e comes from.
+constexpr int kPlain = 0;   // B: src[e], unscaled
+constexpr int kGather = 1;  // A: src[idx[e]] scaled by w[e]
+constexpr int kPacked = 2;  // I: e's half-split packed row, scaled by w[e]
+
+// CH = number of 64-column chunks a lane covers (d <= 64 * CH). T is the
+// element type of src. `pack_block` is I's B (rows per packed half).
+template <int CH, int MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
                 const int* __restrict__ idx, const int* __restrict__ indptr,
                 float* __restrict__ out, long long n_rows, int d,
-                bool round_w) {
+                bool round_w, int pack_block) {
+  constexpr bool SCALE = MODE != kPlain;
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= n_rows) return;
@@ -75,21 +87,32 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
     int my_src = 0;
     float my_w = 0.f;
     if (e < end) {
-      my_src = GATHER ? idx[e] : e;
-      if (GATHER) my_w = round_w ? round_bf16(w[e]) : w[e];
+      if (MODE == kGather) {
+        my_src = idx[e];
+      } else if (MODE == kPacked) {
+        const int b = pack_block;
+        my_src = 2 * ((e / (2 * b)) * b + e % b) + (e / b) % 2;
+      } else {
+        my_src = e;
+      }
+      if (SCALE) my_w = round_w ? round_bf16(w[e]) : w[e];
     }
     const int cnt = min(32, end - base);
 #pragma unroll 4
     for (int j = 0; j < cnt; ++j) {
       const int s = __shfl_sync(kFull, my_src, j);
-      const float ww = GATHER ? __shfl_sync(kFull, my_w, j) : 1.f;
+      const float ww = SCALE ? __shfl_sync(kFull, my_w, j) : 1.f;
       const T* rowp = src + (long long)s * d;
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
         const int col = 2 * (lane + 32 * c);
         if (col < d) {
-          const float2 x = load_pair(rowp + col);
-          if (GATHER) {
+          float2 x = load_pair(rowp + col);
+          if (MODE == kPacked && sizeof(T) == 4 && round_w) {
+            x.x = round_bf16(x.x);   // f32 rows under the bf16 switch
+            x.y = round_bf16(x.y);
+          }
+          if (SCALE) {
             acc[c].x = fmaf(ww, x.x, acc[c].x);
             acc[c].y = fmaf(ww, x.y, acc[c].y);
           } else {
@@ -108,23 +131,23 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
   }
 }
 
-template <bool GATHER, typename T>
+template <int MODE, typename T>
 cudaError_t launch(const T* src, const float* w, const int* idx,
                    const int* indptr, float* out, long long n_rows, int d,
-                   bool round_w, cudaStream_t stream) {
+                   bool round_w, cudaStream_t stream, int pack_block = 0) {
   if (n_rows == 0) return cudaGetLastError();
   const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
   const dim3 block(kWarps * 32);
   const int ch = (d + 63) / 64;
   switch (ch) {
-    case 1: csr_rows_kernel<1, GATHER, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w); break;
-    case 2: csr_rows_kernel<2, GATHER, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w); break;
-    case 3: case 4: csr_rows_kernel<4, GATHER, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w); break;
-    default: csr_rows_kernel<8, GATHER, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w); break;
+    case 1: csr_rows_kernel<1, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+    case 2: csr_rows_kernel<2, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+    case 3: case 4: csr_rows_kernel<4, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+    default: csr_rows_kernel<8, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
   }
   return cudaGetLastError();
 }
@@ -141,12 +164,12 @@ int rg_csr_gather_scale_segsum(const void* table, const void* w,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_table)
-    return (int)launch<true>(static_cast<const __nv_bfloat16*>(table),
+    return (int)launch<kGather>(static_cast<const __nv_bfloat16*>(table),
                              static_cast<const float*>(w),
                              static_cast<const int*>(idx),
                              static_cast<const int*>(indptr),
                              static_cast<float*>(out), n_rows, d, true, s);
-  return (int)launch<true>(static_cast<const float*>(table),
+  return (int)launch<kGather>(static_cast<const float*>(table),
                            static_cast<const float*>(w),
                            static_cast<const int*>(idx),
                            static_cast<const int*>(indptr),
@@ -157,10 +180,33 @@ int rg_csr_gather_scale_segsum(const void* table, const void* w,
 // d <= 512. out is (n_rows, d) f32.
 int rg_csr_segment_sum(const void* msgs, const void* indptr, void* out,
                        long long n_rows, int d, void* stream) {
-  return (int)launch<false>(static_cast<const float*>(msgs), nullptr, nullptr,
+  return (int)launch<kPlain>(static_cast<const float*>(msgs), nullptr, nullptr,
                             static_cast<const int*>(indptr),
                             static_cast<float*>(out), n_rows, d, false,
                             static_cast<cudaStream_t>(stream));
+}
+
+// Kernel I. `msgs2` is (n / 2, 2d) in the half-split layout with `block`
+// rows per half, f32 or (with `bf16_rows`) bf16; n is a multiple of
+// 2 * block; d even, d <= 512. With `round_to_bf16`, rows and weights are
+// rounded to bf16 before the f32 multiply-add. w is (n,) f32, out is
+// (n_rows, d) f32.
+int rg_csr_segsum_packed2_w(const void* msgs2, const void* w,
+                            const void* indptr, void* out, long long n_rows,
+                            int d, int block, int bf16_rows,
+                            int round_to_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16_rows)
+    return (int)launch<kPacked>(static_cast<const __nv_bfloat16*>(msgs2),
+                                static_cast<const float*>(w), nullptr,
+                                static_cast<const int*>(indptr),
+                                static_cast<float*>(out), n_rows, d,
+                                round_to_bf16 != 0, s, block);
+  return (int)launch<kPacked>(static_cast<const float*>(msgs2),
+                              static_cast<const float*>(w), nullptr,
+                              static_cast<const int*>(indptr),
+                              static_cast<float*>(out), n_rows, d,
+                              round_to_bf16 != 0, s, block);
 }
 
 const char* rg_error_string(int code) {

@@ -3,8 +3,10 @@
 
 Rows are ``user \\t items \\t times`` lines or ``(user, item, time)``
 tuples. The bipartite graph becomes a bidirectional, receiver-sorted edge
-array over ``U + I`` nodes with binorm weights and CSR bounds. The C++
-parser and the negative sampler are not ported yet (ROADMAP.md).
+array over ``U + I`` nodes with binorm weights and CSR bounds. The negative
+sampler is the JAX package's numpy rejection sampler (its
+``use_native=False`` path) and draws exactly as that does; the C++ parser
+and sampler are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class EdgeDataset:
     edge_norm: np.ndarray         # (2E,) float32 binorm weights
     edge_times_bi: np.ndarray     # (2E,) int32
     recv_indptr: np.ndarray = None  # (U+I+1,) int32 CSR bounds
+    _hist_keys: np.ndarray = None  # sorted user*I+item of the train pairs
 
     @property
     def num_edges(self) -> int:
@@ -68,6 +71,40 @@ class EdgeDataset:
     @property
     def num_nodes(self) -> int:
         return self.num_users + self.num_items
+
+    def sample_negatives(self, users: np.ndarray, rng: np.random.Generator,
+                         n: int = 1, max_rounds: int = 100) -> np.ndarray:
+        """Rejection-sample ``n`` negatives per user: items that are not
+        among the user's train interactions. Returns ``(len(users), n)``."""
+        out = rng.integers(0, self.num_items, size=(len(users), n))
+        # int64 before the multiply: users arrive as int32, and
+        # user * num_items passes 2**31 at production scale, after which
+        # every membership test would miss
+        u64 = users.astype(np.int64)
+        keys = u64[:, None] * self.num_items + out
+        for _ in range(max_rounds):
+            idx = np.searchsorted(self._hist_keys, keys.ravel())
+            idx = np.minimum(idx, len(self._hist_keys) - 1)
+            bad = (self._hist_keys[idx] == keys.ravel()).reshape(keys.shape)
+            if not bad.any():
+                break
+            out[bad] = rng.integers(0, self.num_items, size=int(bad.sum()))
+            keys = u64[:, None] * self.num_items + out
+        return out
+
+    def train_batches(self, batch_size: int, rng: np.random.Generator,
+                      n_negs: int = 1, drop_remainder: bool = True):
+        """Shuffled ``(users, pos_items, neg_items)`` int32 batches."""
+        perm = rng.permutation(self.num_edges)
+        edges = self.edgelist[perm]
+        end = self.num_edges - (self.num_edges % batch_size
+                                if drop_remainder else 0)
+        for s in range(0, end, batch_size):
+            chunk = edges[s:s + batch_size]
+            users = chunk[:, 0].astype(np.int32)
+            pos = chunk[:, 1].astype(np.int32)
+            negs = self.sample_negatives(users, rng, n=n_negs).astype(np.int32)
+            yield users, pos, negs.squeeze(-1) if n_negs == 1 else negs
 
 
 def load_edge_dataset(train, test, hour_interval: float = 1.0,
@@ -159,6 +196,9 @@ def load_edge_dataset(train, test, hour_interval: float = 1.0,
     recv_indptr = np.zeros(n_nodes + 1, np.int32)
     recv_indptr[1:] = np.cumsum(recv_counts)
 
+    hist_keys = np.unique(edgelist[:, 0].astype(np.int64) * num_items
+                          + edgelist[:, 1].astype(np.int64))
+
     return EdgeDataset(
         edgelist=edgelist, edge_time=edge_time,
         num_users=num_users, num_items=num_items,
@@ -168,6 +208,7 @@ def load_edge_dataset(train, test, hour_interval: float = 1.0,
         senders=senders, receivers=receivers,
         edge_norm=edge_norm, edge_times_bi=edge_times_bi,
         recv_indptr=recv_indptr,
+        _hist_keys=hist_keys,
     )
 
 

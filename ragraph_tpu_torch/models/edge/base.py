@@ -1,6 +1,7 @@
-"""Shared pieces of the edge (recommendation) model family, inference part
-(counterpart of ``ragraph_tpu/models/edge/base.py``): the config, the
-relative edge-time encoding and the LightGCN propagation."""
+"""Shared pieces of the edge (recommendation) model family (counterpart of
+``ragraph_tpu/models/edge/base.py``): the config, the losses, the edge
+dropout masks, the relative edge-time encoding and the LightGCN
+propagation."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 from ragraph_tpu_torch.ops.csr_segment import (gather_scale_segsum,
                                                sorted_segment_sum_grad)
 from ragraph_tpu_torch.ops.segment import scatter_sum, segment_softmax
+from ragraph_tpu_torch.ops.similarity import l2_normalize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +67,111 @@ class EdgeModelConfig:
             raise ValueError(
                 f"retrieve_dtype must be 'input', 'bf16' or 'int8', got "
                 f"{self.retrieve_dtype!r}")
+
+
+def bpr_loss(user_emb, pos_item_emb, neg_item_emb):
+    """``-log sigmoid(pos - neg)``, averaged."""
+    pos_score = (user_emb * pos_item_emb).sum(dim=1)
+    neg_score = (user_emb * neg_item_emb).sum(dim=1)
+    return -torch.log(1e-10 + torch.sigmoid(pos_score - neg_score)).mean()
+
+
+def nce_loss(pos_score, neg_score, edge_weight=1.0):
+    """NCE with ``neg_score`` of shape ``(B, N)``."""
+    numerator = torch.exp(pos_score)
+    denominator = numerator + torch.exp(neg_score).sum(dim=1)
+    return (-torch.log(numerator / denominator) * edge_weight).mean()
+
+
+def cal_infonce(view1, view2, temperature: float, b_cos: bool = True,
+                mask: torch.Tensor | None = None):
+    """In-batch InfoNCE. ``mask`` (``(B,)`` bool) leaves padded rows out of
+    every denominator and of the mean (see :func:`unique_padded`)."""
+    if b_cos:
+        view1 = l2_normalize(view1)
+        view2 = l2_normalize(view2)
+    pos_score = torch.exp((view1 * view2).sum(dim=-1) / temperature)
+    sim = view1.float() @ view2.float().T
+    if mask is not None:
+        sim = torch.where(mask[None, :], sim, -torch.inf)
+    ttl_score = torch.exp(sim / temperature).sum(dim=1)
+    losses = -torch.log(pos_score / ttl_score + 1e-5)
+    if mask is not None:
+        mm = mask.to(losses.dtype)
+        return (losses * mm).sum() / torch.clamp_min(mm.sum(), 1.0)
+    return losses.mean()
+
+
+def unique_padded(x: torch.Tensor, size: int):
+    """Fixed-size unique: the sorted distinct values of ``x`` cut or padded
+    to ``size``; returns ``(values, valid_mask)`` with padding read as 0."""
+    vals = torch.unique(x)[:size]
+    out = torch.full((size,), -1, dtype=x.dtype, device=x.device)
+    out[:len(vals)] = vals
+    valid = out >= 0
+    return torch.where(valid, out, 0), valid
+
+
+def reg_loss_emb(user_table, item_table, users, pos_items, neg_items):
+    """``½(‖u‖² + ‖i⁺‖² + ‖i⁻‖²)/B`` on the tables' rows of the batch."""
+    u = user_table[users.long()]
+    p = item_table[pos_items.long()]
+    n = item_table[neg_items.long()]
+    return 0.5 * ((u ** 2).sum() + (p ** 2).sum() + (n ** 2).sum()) \
+        / users.shape[0]
+
+
+def check_finite(loss):
+    """Whether ``loss`` is finite, as a tensor (no host read)."""
+    return torch.isfinite(loss)
+
+
+def edge_drop_mask(generator: torch.Generator, num_edges: int,
+                   keep_rate: float, device=None):
+    """Bernoulli keep mask drawn from ``generator``."""
+    device = device if device is not None else generator.device
+    if keep_rate >= 1.0:
+        return torch.ones(num_edges, dtype=torch.bool, device=device)
+    return torch.rand(num_edges, generator=generator,
+                      device=device) < keep_rate
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``. torch has no
+    uint32 multiply, and the int64 product would pass 2**63, so the high
+    half of ``x`` is multiplied apart and only its low 16 bits kept."""
+    lo = (x & 0xFFFF) * c
+    hi = (((x >> 16) * c) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def hash_edge_mask(salt, edge_ids: torch.Tensor, keep_rate: float):
+    """Keep mask from a stateless integer hash of the edge id: the JAX
+    package's uint32 arithmetic (a murmur3-style finalizer) in int64 masked
+    to 32 bits, bit for bit the same mask for the same ``salt``.
+
+    A pure elementwise function of ``(salt, edge id)``, so the same mask
+    exists in sender order by hashing ``graph.send_perm``, without a
+    gather. ``salt`` is an int or a 0-d integer tensor; its low 32 bits
+    count.
+    """
+    if keep_rate >= 1.0:
+        return torch.ones(edge_ids.shape, dtype=torch.bool,
+                          device=edge_ids.device)
+    if isinstance(salt, torch.Tensor):
+        salt = salt.to(edge_ids.device, torch.int64)
+    x = (_mul32(edge_ids.to(torch.int64) & _M32, 0x9E3779B9)
+         + (salt & _M32)) & _M32
+    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
+    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    # clamp: a keep_rate in (1 - 2**-33, 1) would round to 2**32, which as a
+    # uint32 threshold wraps to 0 and drops every edge instead of none
+    thresh = min(round(keep_rate * 4294967296.0), 4294967295)
+    return x < thresh
 
 
 def relative_time_encoding(edge_times: torch.Tensor,

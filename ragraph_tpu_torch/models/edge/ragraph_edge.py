@@ -1,4 +1,4 @@
-"""The edge (recommendation) model family, inference part (counterpart of
+"""The edge (recommendation) model family (counterpart of
 ``ragraph_tpu/models/edge/ragraph_edge.py``).
 
 ``TemporalLightGCN`` is the shared engine of ``LightGCNEdge``, ``GraphPro``
@@ -7,16 +7,24 @@ lifecycle (pretrain / for_tune / vanilla / finetune). ``RAGraphEdge`` adds
 the retrieval library (:meth:`TemporalLightGCN.make_resource_graph`) and the
 RAG fusion of its cosine top-k (:meth:`TemporalLightGCN._fuse_rag`).
 
-Parameters are a plain dict of tensors with the JAX package's keys
-(``user_embedding``, ``item_embedding``, ``gating_weight``, ``gating_bias``),
-so tables trained by either package serve the other
-(:func:`ragraph_tpu_torch.convert.params_from_jax`). The model runs on the
-device of its graph arrays. Where the JAX package asks "is the backend a
-TPU", this one asks "is the graph on CUDA": on the CPU both pick the
-scatter reduction and f32.
+Parameters are a plain dict with the JAX package's keys
+(``user_embedding``, ``item_embedding``, ``gating_weight``, ``gating_bias``
+as tensors, ``user_lora`` and ``item_lora`` as ``(A, B)`` pairs), so tables
+trained by either package serve the other
+(:func:`ragraph_tpu_torch.convert.params_from_jax`). The model is
+functional as the JAX one is: :meth:`TemporalLightGCN.cal_loss` maps params
+and a batch to a loss, and whoever trains makes the tensors leaves with
+``requires_grad`` (:class:`ragraph_tpu_torch.train.trainer.EdgeTrainer`).
+The model runs on the device of its graph arrays. Where the JAX package asks
+"is the backend a TPU", this one asks "is the graph on CUDA": on the CPU
+both pick the scatter reduction and f32.
 
-Not ported yet (ROADMAP.md): training (``cal_loss``, dropout, noise), LoRA
-and the multi-chip paths.
+Randomness comes from the ``torch.Generator`` a caller passes. The draws of
+a training step live in small methods (``_draw_salt``, ``_noise_indices``)
+and in ``nn/gating.py``, which a test can replace to feed both packages
+the same numbers.
+
+Not ported yet (ROADMAP.md): the multi-chip paths.
 """
 
 from __future__ import annotations
@@ -30,10 +38,14 @@ import torch
 
 from ragraph_tpu_torch.data.edgelist import EdgeDataset
 from ragraph_tpu_torch.device import resolve_device
-from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig,
+from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig, bpr_loss,
+                                                edge_drop_mask,
+                                                hash_edge_mask,
                                                 lightgcn_propagate,
+                                                reg_loss_emb,
                                                 relative_time_encoding)
 from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
+from ragraph_tpu_torch.nn.lora import LoRAFactors, apply_lora, svd_init
 from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
@@ -163,7 +175,9 @@ def _xavier(shape: tuple, generator: torch.Generator,
 class TemporalLightGCN:
     """Shared engine for LightGCN / GraphPro / RAGraph-edge.
 
-    Flags: ``use_time`` (GraphPro/RAGraph) and ``use_rag`` (RAGraph only).
+    Flags: ``use_time`` (GraphPro/RAGraph), ``use_rag`` and with it
+    ``cfg.use_lora`` (RAGraph only). ``phase`` follows the reference
+    lifecycle.
     """
 
     use_time: bool = True
@@ -250,6 +264,24 @@ class TemporalLightGCN:
                 weights = weights * 0.5 + tn * 0.5
         return weights, w_send, impl
 
+    @staticmethod
+    def _draw_salt(generator: torch.Generator) -> torch.Tensor:
+        """The step's dropout salt: a 0-d int64 tensor in ``[0, 2**32)`` on
+        the generator's device, never read on the host."""
+        return torch.randint(0, 1 << 32, (), generator=generator,
+                             device=generator.device)
+
+    def _drop_masks(self, generator, g, keep_rate: float):
+        """Edge-keep mask in receiver order, and in sender order when the
+        sender arrays exist, which keeps the fused propagation usable."""
+        if g.send_perm is not None:
+            salt = 0 if keep_rate >= 1.0 else self._draw_salt(generator)
+            ids = torch.arange(g.num_edges, device=g.device)
+            return (hash_edge_mask(salt, ids, keep_rate),
+                    hash_edge_mask(salt, g.send_perm, keep_rate))
+        return edge_drop_mask(generator, g.num_edges, keep_rate,
+                              g.device), None
+
     def _propagate_layers(self, g, all_emb, weights, w_send, impl):
         return lightgcn_propagate(all_emb, g.senders, g.receivers, weights,
                                   g.num_nodes, self.cfg.num_layers,
@@ -278,24 +310,50 @@ class TemporalLightGCN:
             params["user_embedding"], params["item_embedding"] = \
                 pretrained_tables
         if self.phase == "finetune":
-            self._no_lora()
             params["gating_weight"] = _xavier((cfg.emb_size, cfg.emb_size),
                                               generator, dev)
             params["gating_bias"] = _xavier((1, cfg.emb_size), generator, dev)
+            if self._lora():
+                params["user_lora"] = svd_init(params["user_embedding"],
+                                               cfg.lora_rank,
+                                               cfg.lora_init_scale)
+                params["item_lora"] = svd_init(params["item_embedding"],
+                                               cfg.lora_rank,
+                                               cfg.lora_init_scale)
         return params
 
     # -- forward -----------------------------------------------------------
 
-    def _no_lora(self):
-        if self.phase == "finetune" and self.use_rag and self.cfg.use_lora:
-            raise NotImplementedError(
-                "use_lora=True is not ported yet (ROADMAP.md queue 1, "
-                "'Edge model core': nn/lora.py)")
+    def _lora(self) -> bool:
+        return (self.phase == "finetune" and self.use_rag
+                and self.cfg.use_lora)
 
-    def _gate(self, params, all_emb, generator):
+    def _effective_tables(self, params, generator, training: bool):
+        """The base tables plus the LoRA delta. With
+        ``lora_train_factors=False`` the factors are detached: the delta is
+        a constant bias, and a trainer leaves the factors out of its
+        optimizer (Adam on a zero gradient changes nothing)."""
+        u, it = params["user_embedding"], params["item_embedding"]
+        if self._lora():
+            cfg = self.cfg
+            drop_gen = (generator if training and cfg.emb_dropout > 0
+                        else None)
+            u_f = LoRAFactors(*params["user_lora"])
+            i_f = LoRAFactors(*params["item_lora"])
+            if not cfg.lora_train_factors:
+                u_f = LoRAFactors(*(t.detach() for t in u_f))
+                i_f = LoRAFactors(*(t.detach() for t in i_f))
+            u = apply_lora(u, u_f, cfg.emb_dropout, drop_gen)
+            it = apply_lora(it, i_f, cfg.emb_dropout, drop_gen)
+        return u, it
+
+    def _gate(self, params, all_emb, generator, training: bool = False):
         if self.phase == "finetune":
+            drop_gen = (generator if training and self.cfg.emb_dropout > 0
+                        else None)
             return learned_gate(all_emb, params["gating_weight"],
-                                params["gating_bias"])
+                                params["gating_bias"],
+                                self.cfg.emb_dropout, drop_gen)
         if self.phase == "for_tune":
             if generator is None:
                 generator = torch.Generator(all_emb.device).manual_seed(0)
@@ -310,20 +368,18 @@ class TemporalLightGCN:
 
         ``graph`` / ``resources`` override the instance's graph and
         library; ``edge_mask_send`` is the keep mask in sender order, which
-        keeps the fused propagation usable under a mask.
+        keeps the fused propagation usable under a mask; ``time_scale``
+        rescales the static time softmax under dropout (1 / keep rate).
+        ``training`` turns on the embedding dropout and the noise mode of
+        the RAG fusion, both drawing from ``generator``.
         """
-        if training:
-            raise NotImplementedError(
-                "training is not ported yet (ROADMAP.md queue 1, 'Edge "
-                "training, eval and CLI')")
         g = self.graph if graph is None else graph
         weights, w_send, impl = self._edge_weights(
             g, edge_mask, edge_mask_send, time_scale=time_scale,
             max_time_step=max_time_step)
-        self._no_lora()
-        all_emb = torch.cat([params["user_embedding"],
-                             params["item_embedding"]], dim=0)
-        all_emb = self._gate(params, all_emb, generator)
+        u, it = self._effective_tables(params, generator, training)
+        all_emb = self._gate(params, torch.cat([u, it], dim=0), generator,
+                             training)
 
         layers = self._propagate_layers(g, all_emb, weights, w_send, impl)
         res_emb = sum(layers)
@@ -332,10 +388,22 @@ class TemporalLightGCN:
                    else (self.resource_keys, self.resource_values))
         if self.use_rag and self.phase in ("vanilla", "finetune") \
                 and res_src[0] is not None:
-            res_emb = self._fuse_rag(layers[0], res_emb, resources=res_src)
+            res_emb = self._fuse_rag(layers[0], res_emb, generator, training,
+                                     resources=res_src)
         return res_emb[: g.num_users], res_emb[g.num_users:]
 
-    def _fuse_rag(self, query_emb, res_emb, resources=None):
+    @staticmethod
+    def _noise_indices(generator, n_rows: int, n_noise: int,
+                       n_resources: int, device) -> torch.Tensor:
+        """``(n_rows, n_noise)`` uniform library rows for the noise mode."""
+        if generator is None:
+            raise ValueError("the noise mode draws from a generator; pass "
+                             "one")
+        return torch.randint(0, n_resources, (n_rows, n_noise),
+                             generator=generator, device=device)
+
+    def _fuse_rag(self, query_emb, res_emb, generator=None,
+                  training: bool = False, resources=None):
         """Cosine top-k over the library and the weighted fusion of the
         retrieved values' mean, chunked over the queries at ``rag_chunk``
         (else ``batch_size``) so no ``(N, R)`` score matrix exists.
@@ -347,12 +415,32 @@ class TemporalLightGCN:
         membership is ``scores >= kth``, and the mean is a ``(chunk, R)``
         0/1 matrix times the values over the member count. The two agree
         up to exact score ties at the k-th boundary.
+
+        The retrieval yields indices (or a 0/1 membership) and the library
+        is a buffer, so the retrieved mean carries no gradient: it is
+        computed without autograd on detached queries, and the only
+        gradient path of the result is ``(1 - retrieve_weight) * res_emb``.
+
+        Noise mode (``use_noise`` while training in the finetune phase):
+        the retrieval widens to ``retrieve_num + noise_retrieve_num`` and
+        ``noise_retrieve_num`` uniformly drawn library rows join every
+        retrieved set, as the reference's noise protocol does.
         """
+        cfg = self.cfg
+        add_noise = cfg.use_noise and training and self.phase == "finetune"
+        with torch.no_grad():
+            rag_emb = self._retrieved_mean(query_emb.detach(), add_noise,
+                                           generator, resources)
+        return (1.0 - cfg.retrieve_weight) * res_emb \
+            + cfg.retrieve_weight * rag_emb
+
+    def _retrieved_mean(self, query_emb, add_noise, generator, resources):
         cfg = self.cfg
         res_keys, res_values = (resources if resources is not None
                                 else (self.resource_keys,
                                       self.resource_values))
-        k = min(cfg.retrieve_num, res_keys.shape[0])
+        k = cfg.retrieve_num + (cfg.noise_retrieve_num if add_noise else 0)
+        k = min(k, res_keys.shape[0])
         qn, e = query_emb.shape
         chunk = min(cfg.rag_chunk or cfg.batch_size, qn)
         keys_n = l2_normalize(res_keys)
@@ -363,7 +451,7 @@ class TemporalLightGCN:
             keys_n = keys_n.to(torch.bfloat16)
         elif cfg.retrieve_dtype == "int8" and not big_k:
             keys_n = quantize_keys_i8(keys_n, normalized=True)
-        means = []
+        means, counts = [], []
         for s in range(0, qn, chunk):
             qc = query_emb[s:s + chunk]
             if big_k:
@@ -373,13 +461,23 @@ class TemporalLightGCN:
                 count = member.sum(dim=1, keepdim=True)
                 total = member.to(res_values.dtype) @ res_values
                 means.append(total.float() / count.clamp(min=1))
+                counts.append(count)
                 continue
             _, idx = cosine_topk(qc, keys_n, k, keys_normalized=True,
                                  score_dtype=cfg.retrieve_dtype)
             means.append(topk_gather(res_values, idx).mean(dim=1))
         rag_emb = torch.cat(means, dim=0)
-        return (1.0 - cfg.retrieve_weight) * res_emb \
-            + cfg.retrieve_weight * rag_emb
+        if add_noise:
+            # the mean over [top-k, noise rows] as a count-weighted blend
+            nk = cfg.noise_retrieve_num
+            noise_idx = self._noise_indices(generator, qn, nk,
+                                            res_values.shape[0],
+                                            rag_emb.device)
+            noise_sum = topk_gather(res_values, noise_idx).sum(dim=1)
+            c = (torch.cat(counts, dim=0).to(rag_emb.dtype) if counts
+                 else float(k))
+            rag_emb = (rag_emb * c + noise_sum) / (c + nk)
+        return rag_emb
 
     # -- resource graph (library) ------------------------------------------
 
@@ -425,6 +523,32 @@ class TemporalLightGCN:
         self.resource_keys = torch.cat(all_keys, dim=0)
         self.resource_values = torch.cat(all_values, dim=0)
         return self.resource_keys, self.resource_values
+
+    # -- loss --------------------------------------------------------------
+
+    def cal_loss(self, params, batch, generator, graph=None, resources=None,
+                 edge_masks=None):
+        """BPR plus weight-decay L2 of one ``(users, pos_items, neg_items)``
+        batch of index tensors; returns ``(loss, {"rec_loss", "reg_loss"})``.
+
+        The step's edge dropout comes from :meth:`_drop_masks` unless
+        ``edge_masks`` gives the ``(receiver order, sender order)`` pair.
+        """
+        g = self.graph if graph is None else graph
+        users, pos_items, neg_items = (t.long() for t in batch)
+        keep = 1.0 - self.cfg.edge_dropout
+        mask, mask_send = (edge_masks if edge_masks is not None
+                           else self._drop_masks(generator, g, keep))
+        user_emb, item_emb = self.forward(
+            params, generator=generator, training=True, edge_mask=mask,
+            edge_mask_send=mask_send, time_scale=1.0 / keep, graph=g,
+            resources=resources)
+        rec = bpr_loss(user_emb[users], item_emb[pos_items],
+                       item_emb[neg_items])
+        u_t, i_t = self._effective_tables(params, None, False)
+        reg = self.cfg.weight_decay * reg_loss_emb(u_t, i_t, users,
+                                                   pos_items, neg_items)
+        return rec + reg, {"rec_loss": rec, "reg_loss": reg}
 
     # -- serving -----------------------------------------------------------
 
@@ -493,7 +617,7 @@ class LightGCNEdge(TemporalLightGCN):
     use_time = False
     use_rag = False
 
-    def _gate(self, params, all_emb, generator):
+    def _gate(self, params, all_emb, generator, training: bool = False):
         return all_emb
 
 

@@ -55,6 +55,13 @@ _SIGNATURES = {
     "rg_bucket_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out_v, out_i, Q, W, k, rows per block, stream
     "rg_row_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, total, partial, offsets, n, d, exclusive, bf16 input, stream
+    "rg_prefix_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
+    # rows per chunk of rg_prefix_sum's scratch (returned, not an error code)
+    "rg_prefix_sum_chunk": [],
+    # msgs2, w, indptr, out, n_rows, d, block, bf16 rows, round to bf16,
+    # stream
+    "rg_csr_segsum_packed2_w": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
 }
 
 

@@ -9,6 +9,10 @@
 - :func:`sorted_segment_sum_grad`: ``out[r] = Σ msgs[e]`` over CSR segments
   of pre-scaled f32 messages. Kernel B on CUDA. Its backward is
   ``ct[seg_ids]``.
+- :func:`segsum_packed2_w`: kernel A's weighted sum with the messages given
+  as a half-split packed ``(n/2, 2D)`` matrix (counterpart of
+  ``_segsum_packed2_w``). Kernel I on CUDA: A's walk reading each edge's row
+  at an address computed from the edge id, with no gather.
 
 Each has a plain PyTorch version (``*_plain``) in this module. A wrapper
 runs the plain version only for tensors on the CPU; for CUDA tensors it
@@ -58,6 +62,43 @@ def segment_sum_plain(msgs: torch.Tensor,
                       device=msgs.device)
     return out.index_add_(0, _segment_ids(indptr, msgs.shape[0]),
                           msgs.float())
+
+
+def unpack_half_split(msgs2: torch.Tensor, n: int, block: int) -> torch.Tensor:
+    """The ``(n, D)`` messages of a half-split packed ``(n/2, 2D)`` matrix:
+    packed row ``c·B + i`` holds ``[edge c·2B + i | edge c·2B + B + i]``."""
+    d = msgs2.shape[1] // 2
+    return (msgs2.reshape(n // (2 * block), block, 2, d).permute(0, 2, 1, 3)
+            .reshape(n, d))
+
+
+def _check_packed2(msgs2: torch.Tensor, w: torch.Tensor, n: int,
+                   block: int) -> None:
+    if msgs2.dim() != 2 or msgs2.shape[1] % 2:
+        raise ValueError(f"segsum_packed2_w: msgs2 must be (n/2, 2D), got "
+                         f"shape {tuple(msgs2.shape)}")
+    if block <= 0 or n % (2 * block) or msgs2.shape[0] != n // 2:
+        raise ValueError(f"segsum_packed2_w: n={n} must be a multiple of "
+                         f"2*block={2 * block} and msgs2 must have n/2 rows, "
+                         f"got {msgs2.shape[0]}")
+    if w.shape != (n,):
+        raise ValueError(f"segsum_packed2_w: w must be ({n},), got "
+                         f"{tuple(w.shape)}")
+
+
+def segsum_packed2_w_plain(msgs2: torch.Tensor, w: torch.Tensor,
+                           indptr: torch.Tensor, n: int, block: int = 512,
+                           bf16: bool = True) -> torch.Tensor:
+    """Plain version of kernel I: unpack, round as kernel A does, scale,
+    ``index_add_`` over segment ids."""
+    _check_packed2(msgs2, w, n, block)
+    m, ww = unpack_half_split(msgs2, n, block).float(), w.float()
+    if bf16:
+        m = m.to(torch.bfloat16).float()
+        ww = ww.to(torch.bfloat16).float()
+    out = torch.zeros(len(indptr) - 1, m.shape[1], dtype=torch.float32,
+                      device=m.device)
+    return out.index_add_(0, _segment_ids(indptr, n), m * ww[:, None])
 
 
 def _check_cuda(name: str, **tensors: tuple) -> None:
@@ -120,6 +161,36 @@ def csr_segment_sum(msgs: torch.Tensor, indptr: torch.Tensor) -> torch.Tensor:
     rc = native.lib().rg_csr_segment_sum(
         msgs.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_rows, d,
         native.stream_ptr(msgs))
+    native.check(rc, name)
+    native.LAUNCHES[name] += 1
+    return out
+
+
+def segsum_packed2_w(msgs2: torch.Tensor, w: torch.Tensor,
+                     indptr: torch.Tensor, n: int, block: int = 512,
+                     bf16: bool = True) -> torch.Tensor:
+    """``out[r] = Σ_{e∈[indptr[r], indptr[r+1])} w[e]·msg(e)`` with the
+    messages in the half-split packed layout (see :func:`unpack_half_split`);
+    ``indptr`` must cover the ``n`` edges. With ``bf16`` rows and weights
+    are rounded to bf16 and summed in f32. Kernel I on CUDA tensors, its
+    plain version on CPU tensors."""
+    if msgs2.device.type == "cpu":
+        return segsum_packed2_w_plain(msgs2, w, indptr, n, block, bf16)
+    name = "csr_segsum_packed2_w"
+    _check_packed2(msgs2, w, n, block)
+    if n >= 1 << 30:
+        raise ValueError(f"{name}: n={n} edges exceed the kernel's 2^30")
+    # f32 rows stay f32: under ``bf16`` the kernel rounds them as it reads
+    src = msgs2 if bf16 and msgs2.dtype == torch.bfloat16 else msgs2.float()
+    n_rows, d = len(indptr) - 1, src.shape[1] // 2
+    _check_cuda(name, msgs2=(src, src.dtype, 2), w=(w, torch.float32, 1),
+                indptr=(indptr, torch.int32, 1))
+    _check_width(name, d)
+    out = torch.empty(n_rows, d, dtype=torch.float32, device=src.device)
+    rc = native.lib().rg_csr_segsum_packed2_w(
+        src.data_ptr(), w.data_ptr(), indptr.data_ptr(), out.data_ptr(),
+        n_rows, d, block, int(src.dtype == torch.bfloat16), int(bf16),
+        native.stream_ptr(src))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out

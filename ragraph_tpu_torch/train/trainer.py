@@ -1,0 +1,258 @@
+"""Edge-model trainer: epoch loop, evaluation each epoch, early stop,
+checkpoints (counterpart of ``ragraph_tpu/train/trainer.py``).
+
+Shuffled edge batches with host-sampled negatives, Adam, an evaluation after
+every epoch, the best-recall snapshot, and a patience stop. Where the JAX
+trainer jits one pure step that returns new arrays, this one makes the
+parameters leaf tensors and lets ``torch.optim.Adam`` update them in place;
+so the best-recall snapshot is a clone, not a reference. optax's ``adam``
+and torch's share their defaults (b1 0.9, b2 0.999, eps 1e-8 added outside
+the root), so the two trainers follow the same trajectory from the same
+batches and masks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ragraph_tpu_torch.train.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
+from ragraph_tpu_torch.train.metrics import RankingEvaluator
+
+
+@dataclasses.dataclass
+class TrainResult:
+    best_perform: dict
+    best_params: Any
+    epochs_run: int
+    history: list
+
+
+def map_params(fn: Callable, params: dict) -> dict:
+    """Apply ``fn`` to every tensor of a params dict (LoRA factor pairs are
+    tuples of tensors and stay tuples)."""
+    return {k: tuple(fn(t) for t in v) if isinstance(v, (tuple, list))
+            else fn(v) for k, v in params.items()}
+
+
+def param_leaves(params: dict) -> list:
+    """``(name, tensor)`` for every tensor of a params dict, in key order."""
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        if isinstance(v, (tuple, list)):
+            out += [(f"{k}.{i}", t) for i, t in enumerate(v)]
+        else:
+            out.append((k, v))
+    return out
+
+
+class EdgeTrainer:
+    """Train a :class:`TemporalLightGCN`-family model on an EdgeDataset."""
+
+    def __init__(self, model, dataset, cfg=None, logger: Callable = print,
+                 evaluator: RankingEvaluator | None = None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-device training is not ported yet (ROADMAP.md queue "
+                "1, item 10)")
+        self.model = model
+        self.dataset = dataset
+        self.cfg = cfg or model.cfg
+        self.log = logger
+        self.evaluator = evaluator or RankingEvaluator(
+            metrics=self.cfg.metrics, ks=self.cfg.metrics_k,
+            eval_batch_size=self.cfg.eval_batch_size)
+
+    # -- one step ------------------------------------------------------------
+
+    def prepare(self, params: dict):
+        """Leaf copies of ``params`` with ``requires_grad`` and their Adam.
+        Frozen LoRA factors (``lora_train_factors=False``) stay out of the
+        optimizer and need no gradient."""
+        frozen = () if self.cfg.lora_train_factors else ("user_lora",
+                                                         "item_lora")
+        params = map_params(lambda t: t.detach().clone(), params)
+        trainable = []
+        for name, t in param_leaves(params):
+            if name.split(".")[0] not in frozen:
+                trainable.append(t.requires_grad_(True))
+        return params, torch.optim.Adam(trainable, lr=self.cfg.lr)
+
+    def _graph_and_resources(self):
+        model = self.model
+        resources = None
+        if getattr(model, "use_rag", False) \
+                and model.resource_keys is not None:
+            resources = (model.resource_keys, model.resource_values)
+        return model.graph, resources
+
+    def step(self, params: dict, optimizer, batch, generator,
+             edge_masks=None):
+        """Loss, gradients and the Adam update of one batch of index
+        tensors, in place on ``params``. Returns ``(loss, aux)`` as
+        detached device scalars."""
+        graph, resources = self._graph_and_resources()
+        optimizer.zero_grad(set_to_none=True)
+        loss, aux = self.model.cal_loss(params, batch, generator,
+                                        graph=graph, resources=resources,
+                                        edge_masks=edge_masks)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    def _to_device(self, users, pos, neg):
+        """A batch's index arrays on the graph's device; one copy when the
+        three have one shape."""
+        dev = self.model.graph.device
+        if neg.shape == users.shape:
+            return tuple(torch.from_numpy(np.stack([users, pos, neg]))
+                         .to(dev))
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (users, pos, neg))
+
+    # -- the loop ------------------------------------------------------------
+
+    def train(self, params: dict, generator: torch.Generator,
+              num_epochs: int | None = None,
+              rng: np.random.Generator | None = None,
+              checkpoint_dir: str | None = None,
+              checkpoint_every: int = 10) -> TrainResult:
+        """Train; ``generator`` (on the graph's device) feeds the dropout
+        draws, ``rng`` the batch order and the negatives.
+
+        With ``checkpoint_dir``, params, Adam moments, the generator's
+        state, epoch and best metrics are saved every ``checkpoint_every``
+        epochs as ``train_state.pkl``, and a later call resumes from it.
+        """
+        cfg = self.cfg
+        rng = rng or np.random.default_rng(0)
+        num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
+        params, optimizer = self.prepare(params)
+
+        best = {"recall": np.zeros(len(cfg.metrics_k)),
+                "ndcg": np.zeros(len(cfg.metrics_k))}
+        best_params = map_params(lambda t: t.detach().clone(), params)
+        stop_counter = 0
+        history = []
+        epochs_run = 0
+        start_epoch = 0
+
+        resume_path = (os.path.join(checkpoint_dir, "train_state")
+                       if checkpoint_dir else None)
+        if resume_path and os.path.exists(resume_path + ".pkl"):
+            snap = restore_checkpoint(resume_path)
+            dev = self.model.graph.device
+            self._load_state(params, optimizer, snap["params"],
+                             snap["opt_state"])
+            generator.set_state(torch.from_numpy(snap["generator_state"]))
+            best = snap["best"]
+            best_params = map_params(
+                lambda a: torch.from_numpy(np.array(a)).to(dev),
+                snap["best_params"])
+            start_epoch = int(snap["epoch"]) + 1
+            stop_counter = int(snap["stop_counter"])
+            self.log(f"resumed from {resume_path} at epoch {start_epoch}")
+
+        n_negs = cfg.n_negs if getattr(self.model, "multi_negs",
+                                       False) else 1
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            losses = []
+            for users, pos, neg in self.dataset.train_batches(
+                    cfg.batch_size, rng, n_negs=n_negs, drop_remainder=True):
+                loss, _ = self.step(params, optimizer,
+                                    self._to_device(users, pos, neg),
+                                    generator)
+                # device scalars, read once per epoch
+                losses.append(loss)
+            nb = len(losses)
+            ep_loss = float(torch.stack(losses).sum()) if losses else 0.0
+            train_time = time.time() - t0
+
+            user_emb, item_emb = self.model.generate(params)
+            result = self.evaluator.evaluate(
+                user_emb, item_emb, self.dataset.test_user_dict,
+                self.dataset.user_hist_dict)
+            history.append({"epoch": epoch, "loss": ep_loss / max(nb, 1),
+                            **{m: v.tolist() for m, v in result.items()},
+                            "train_time": round(train_time, 2)})
+            self.log(f"epoch {epoch}: loss={ep_loss / max(nb, 1):.4f} "
+                     + " ".join(f"{m}@{k}={v[i]:.4f}"
+                                for m, v in result.items()
+                                for i, k in enumerate(cfg.metrics_k))
+                     + f" ({train_time:.1f}s)")
+            epochs_run = epoch + 1
+
+            if result["recall"][0] > best["recall"][0]:
+                best = result
+                # a clone: Adam goes on updating ``params`` in place
+                best_params = map_params(lambda t: t.detach().clone(),
+                                         params)
+                stop_counter = 0
+            else:
+                stop_counter += 1
+                if stop_counter >= cfg.early_stop_patience:
+                    self.log(f"early stop at epoch {epoch}; best recall "
+                             f"{best['recall'][0]:.4f}")
+                    break
+
+            if resume_path and (epoch + 1) % checkpoint_every == 0:
+                save_checkpoint(resume_path, {
+                    "params": params,
+                    "opt_state": self._opt_state(params, optimizer),
+                    "generator_state": generator.get_state(),
+                    "best": best, "best_params": best_params,
+                    "epoch": epoch, "stop_counter": stop_counter})
+
+        return TrainResult(best_perform=best, best_params=best_params,
+                           epochs_run=epochs_run, history=history)
+
+    @staticmethod
+    def _opt_state(params: dict, optimizer) -> dict:
+        """Adam's step count and moments by parameter name."""
+        out = {}
+        for name, t in param_leaves(params):
+            st = optimizer.state.get(t)
+            if st:
+                out[name] = {"step": float(st["step"]),
+                             "exp_avg": st["exp_avg"],
+                             "exp_avg_sq": st["exp_avg_sq"]}
+        return out
+
+    @staticmethod
+    def _load_state(params: dict, optimizer, saved_params: dict,
+                    saved_opt: dict) -> None:
+        saved = dict(param_leaves(saved_params))
+        with torch.no_grad():
+            for name, t in param_leaves(params):
+                t.copy_(torch.from_numpy(np.array(saved[name])))
+                if name in saved_opt:
+                    st = saved_opt[name]
+                    optimizer.state[t] = {
+                        "step": torch.tensor(float(st["step"])),
+                        "exp_avg": torch.from_numpy(
+                            np.array(st["exp_avg"])).to(t.device),
+                        "exp_avg_sq": torch.from_numpy(
+                            np.array(st["exp_avg_sq"])).to(t.device)}
+
+    def evaluate_grouped(self, params):
+        """Recall and ndcg apart for tuned users (in the train split) and
+        untuned ones."""
+        user_emb, item_emb = self.model.generate(params)
+        out = {}
+        for group in ("tuned", "untuned"):
+            out[group] = self.evaluator.evaluate_grouped(
+                user_emb, item_emb, self.dataset.test_user_dict,
+                self.dataset.train_user_dict, self.dataset.user_hist_dict,
+                group=group)
+            self.log(f"[{group}] " + " ".join(
+                f"{m}@{k}={v[i]:.4f}" for m, v in out[group].items()
+                for i, k in enumerate(self.cfg.metrics_k)))
+        return out

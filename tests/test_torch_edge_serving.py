@@ -267,8 +267,21 @@ def test_unported_paths_raise(data, monkeypatch):
     with pytest.raises(ValueError, match="unknown score_dtype"):
         tm.generate(tparams)
     tm.cfg = dataclasses.replace(tm.cfg, retrieve_dtype="input")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.forward(tparams, training=True)
+    # training and LoRA, ported since: neither raises. Without a mask or
+    # embedding dropout the training forward equals the inference one; a
+    # zero LoRA delta leaves the finetune embeddings where they were
+    for got, want in zip(tm.forward(tparams, training=True),
+                         tm.generate(tparams)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     tm.phase, tm.cfg = "finetune", dataclasses.replace(tm.cfg, use_lora=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.generate(tparams)
+    lora = tm.init_params(torch.Generator().manual_seed(0),
+                          pretrained_tables=(tparams["user_embedding"],
+                                             tparams["item_embedding"]))
+    assert lora["user_lora"].a.shape == (tm.graph.num_users, 16)
+    assert float(lora["user_lora"].a.abs().max()) == 0.0
+    no_lora = {k: v for k, v in lora.items() if "lora" not in k}
+    tm.cfg = dataclasses.replace(tm.cfg, use_lora=False)
+    want = tm.generate(no_lora)
+    tm.cfg = dataclasses.replace(tm.cfg, use_lora=True)
+    for got, ref in zip(tm.generate(lora), want):
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=F32_ATOL)
