@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Build the port's CUDA kernels and drive its serving, ops and training
-paths on one GPU.
+"""Build the port's CUDA kernels and drive its serving, ops, training,
+probe and node paths on one GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc;
-2. hold each of the nine kernels against its plain PyTorch version on the
-   card, at the main path's shapes and at ragged small shapes;
+2. hold each of the twelve kernels against its plain PyTorch version on the
+   card, at its path's shapes and at ragged small shapes; the three probe
+   kernels also against their neighbours (J bit-equal to kernel F's scores
+   and never above kernel D's maxima, K against kernel A, L exact);
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
@@ -19,13 +21,16 @@ Phases (any failure exits non-zero):
    ``vanilla`` config, ``retrieve_num=100000`` against a 524,288-row
    library, both ``selection_dtype`` values, held against ``torch.topk``)
    and the int8 tier (one chunk, pre-quantized table, ``rescore_pad=22``);
-   then the ops path on the 2^21 edges: ``sorted_segment_sum`` (the prefix
-   sum, kernel H) against kernel B's sums and ``segsum_packed2_w`` (kernel
-   I) against kernel A's;
+   the ops path on the 2^21 edges: ``sorted_segment_sum`` (the prefix sum,
+   kernel H) against kernel B's sums and ``segsum_packed2_w`` (kernel I)
+   against kernel A's; then the three probe scripts
+   (``ragraph_tpu_torch.bench.exact_phases``, ``packed_table_gather``,
+   ``onehot_gather``) through their ``main``, the path of kernels J, K, L;
 5. run a small graph through the serving path and through one training
    step of each phase on the card and on the CPU (plain versions) and
-   require embeddings, losses and gradients to agree; run the ``vanilla``,
-   ``pretrain`` and ``finetune`` CLI on the synthetic stream on the card;
+   require embeddings, losses and gradients to agree; a small node
+   ``forward`` likewise; run the ``vanilla``, ``pretrain`` and ``finetune``
+   edge CLI on the synthetic stream on the card;
 6. train at full width (U = I = 131,072, 2^21 edges, D = 64, 3 layers,
    batch 2,048, edge dropout 0.5): ``EdgeTrainer.train`` in the pretrain
    phase for whole epochs of 512 steps, then one stage of
@@ -34,9 +39,14 @@ Phases (any failure exits non-zero):
    finite and fall, every gradient finite and non-zero, and the launches
    per step as counted;
 7. time each kernel, its plain version and one PyTorch library call that
-   computes the same function, beside its bound; time a pretrain step and a
-   finetune step (forward, backward, optimizer apart) beside the same step
-   on plain PyTorch ops.
+   computes the same function, beside its bound;
+8. time a pretrain step and a finetune step (forward, backward, optimizer
+   apart) beside the same step on plain PyTorch ops;
+9. the static node pipeline at full width (3,000 synthetic graphs written
+   as TU text files, hidden 256, batch 16, a 65,536-row library):
+   ``cli.node vanilla`` and ``finetune``, kernel C launched once per
+   ``retrieve``, the library filled into its capacity clamp, a falling
+   loss and an accuracy above 0.5, with the stages timed.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -99,59 +109,15 @@ def fail(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from ragraph_tpu_torch.bench.timing import timed_ms
+    return timed_ms(fn, reps, warmup, "cuda")
 
 
-class StageTimer:
-    """Per-stage milliseconds between CUDA events recorded on an idle
-    stream before a stage and after it; a stage's host work (evaluation
-    bookkeeping, PageRank's convergence checks) falls between them too."""
-
-    def __init__(self):
-        self.ms = {}
-
-    def __call__(self, name, fn):
-        import torch
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        end.synchronize()
-        self.ms[name] = start.elapsed_time(end)
-        return out
-
-
-def make_rows(rng, n_users, n_items, n_inter):
-    """Training rows ``(user, item, time)`` and two test items per user."""
-    t0 = 1_600_000_000
-    users = rng.integers(0, n_users, n_inter)
-    items = rng.integers(0, n_items, n_inter)
-    times = t0 + rng.integers(0, 30 * 24 * 3600, n_inter)
-    train = list(zip(users.tolist(), items.tolist(), times.tolist()))
-    tu = np.repeat(np.arange(n_users), 2)
-    ti = rng.integers(0, n_items, len(tu))
-    test = list(zip(tu.tolist(), ti.tolist()))
-    return train, test
-
-
-def xavier_tables(rng, n_users, n_items, d):
-    def one(n):
-        b = math.sqrt(6.0 / (n + d))
-        return rng.uniform(-b, b, (n, d)).astype(np.float32)
-    return {"user_embedding": one(n_users), "item_embedding": one(n_items)}
+def StageTimer():
+    """Per-stage milliseconds between CUDA events
+    (``ragraph_tpu_torch.bench.timing.StageTimer``)."""
+    from ragraph_tpu_torch.bench import timing
+    return timing.StageTimer("cuda")
 
 
 def check_close(name, got, ref, rtol_atol):
@@ -587,7 +553,153 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
     return errs
 
 
-def phase_kernel_checks(rng, dev, graph):
+def probe_inputs(dev, small=False):
+    """The three probe scripts' own inputs at their own shapes (or at the
+    scripts' ``--small`` shapes), by the scripts' own input functions."""
+    from ragraph_tpu_torch.bench import (exact_phases, onehot_gather,
+                                         packed_table_gather)
+    return {"J": exact_phases.make_inputs(dev, small=small),
+            "K": packed_table_gather.make_inputs(dev, small=small),
+            "L": onehot_gather.make_inputs(dev, small=small)}
+
+
+def probe_kernel_checks(rng, dev, inputs):
+    """Kernels J, K and L against their plain versions at the scripts' shapes
+    and at ragged small shapes; J bit-equal to kernel F's scores and never
+    above kernel D's maxima; K against kernel A; L at tolerance 0."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    from ragraph_tpu_torch.ops import probes as pr
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    errs = {}
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    def j_checks(tag, kh, qh, picks, n_slots):
+        n_r, n_q = kh.shape[0], qh.shape[0]
+        nb = -(-n_r // bt.LANE)
+        d_max = bt.bucket_max(kh, qh)
+        # kernel F's scores of the first n_slots queries against every key
+        assign = torch.arange(n_slots, device=dev, dtype=torch.int32) \
+            .repeat(nb, 1)
+        panels = bt.bucket_rescore(assign, qh, kh)      # (nb, slots, 128)
+        worst = 0.0
+        for pick in picks:
+            got = pr.matmul_probe(kh, qh, pick)
+            torch.cuda.synchronize()
+            worst = max(worst, check_same(
+                f"J {tag} pick_row={pick}", got,
+                pr.matmul_probe_plain(kh, qh, pick)))
+            live = (torch.arange(nb, device=dev) * bt.LANE + pick) < n_r
+            f_scores = panels[:, :, pick][live]
+            check_same(f"J {tag} pick_row={pick} against kernel F",
+                       got[live][:, :n_slots], f_scores)
+            if not bool((got[live] <= d_max[live]).all()):
+                fail(f"J {tag} pick_row={pick}: a product above kernel D's "
+                     f"bucket maximum")
+        return worst
+
+    kh, qh = inputs["J"]["keys"], inputs["J"]["q_bf"]
+    errs["J"] = j_checks(f"Q={qh.shape[0]} R={kh.shape[0]} E={kh.shape[1]}",
+                         kh, qh, (0, 77), 16)
+    for n_q, n_r, e, picks in ((70, 1000, 64, (5, 104)), (5, 130, 8, (1, 127)),
+                               (64, 128, 256, (64,)), (1, 4097, 136, (0, 63)),
+                               (130, 2048, 64, (15, 16))):
+        j_checks(f"Q={n_q} R={n_r} E={e}",
+                 l2_normalize(torch.randn(n_r, e, generator=gen, device=dev))
+                 .bfloat16(),
+                 l2_normalize(torch.randn(n_q, e, generator=gen, device=dev))
+                 .bfloat16(), picks, min(n_q, 8))
+    for bad in (-1, 128):
+        try:
+            pr.matmul_probe(kh, qh, bad)
+        except ValueError:
+            continue
+        fail(f"matmul_probe took pick_row={bad}")
+
+    def k_checks(tag, table, w, send, indptr):
+        """K with the parity split against kernel A on (table, w, send) and
+        against its plain version; then with both weights non-zero."""
+        tp = pr.pack_table(table)
+        par = (send & 1).float()
+        half = (send >> 1).contiguous()
+        args = (tp, w * (1 - par), w * par, half, indptr)
+        got = pr.packed_table_segsum(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"K {tag}", got, pr.packed_table_segsum_plain(*args),
+                          TOL_SEGSUM)
+        a = cs._csr_gather_scale(table, w, send, indptr, True)
+        diff = float((got - a).abs().max()) if got.numel() else 0.0
+        scale = float(a.abs().max()) if a.numel() else 0.0
+        print(f"  K {tag} against kernel A: max_abs_diff={diff:.3e} "
+              f"(largest output {scale:.3e}, limit 5e-4 of it)", flush=True)
+        if diff > 5e-4 * scale:
+            fail(f"K {tag} disagrees with kernel A")
+        empty = indptr[1:] == indptr[:-1]
+        if not bool((got[empty] == 0).all()):
+            fail(f"K {tag}: an empty segment is not a zero row")
+        both = (tp, w, 1 - w, half, indptr)
+        check_close(f"K {tag} both weights", pr.packed_table_segsum(*both),
+                    pr.packed_table_segsum_plain(*both), TOL_SEGSUM)
+        return err, diff
+
+    kin = inputs["K"]
+    errs["K"], errs["K_vs_A"] = k_checks(
+        f"N={kin['table'].shape[0]} D={kin['table'].shape[1]} "
+        f"E={kin['send'].shape[0]}", kin["table"], kin["w"], kin["send"],
+        kin["indptr"])
+    for n_tab, n_rows, e, d, hub in ((64, 37, 1001, 64, False),
+                                     (300, 700, 4099, 18, True),
+                                     (6, 5, 3, 2, False),
+                                     (64, 64, 777, 128, True),
+                                     (1000, 129, 2000, 100, False)):
+        k_checks(f"table={n_tab} rows={n_rows} E={e} D={d} hub={hub}",
+                 torch.randn(n_tab, d, generator=gen, device=dev),
+                 torch.rand(e, generator=gen, device=dev),
+                 t(rng.integers(0, n_tab, e), torch.int32),
+                 random_indptr(rng, dev, e, n_rows, hub))
+    try:
+        pr.packed_table_segsum(torch.zeros(4, 2 * 130, device=dev), kin["w"],
+                               kin["w"], kin["send"], kin["indptr"])
+    except ValueError:
+        pass
+    else:
+        fail("packed_table_segsum took D = 130")
+
+    lin = inputs["L"]
+    got = pr.onehot_block_gather(lin["col"], lin["table"])
+    torch.cuda.synchronize()
+    errs["L"] = check_same(
+        f"L blocks={lin['col'].shape[0]} P={lin['col'].shape[1]} "
+        f"D={lin['table'].shape[1]}", got.float(),
+        pr.onehot_block_gather_plain(lin["col"], lin["table"]).float())
+    check_same("L against table[senders]", got[lin["slot"]].float(),
+               lin["table"][lin["senders"].long()].float())
+    del got
+    for n, e, d in ((300, 1000, 8), (128, 5, 512), (1000, 4099, 72),
+                    (129, 0, 64)):
+        send = np.sort(rng.integers(0, n, e))
+        col, p, _, slot = pr.build_onehot_layout(send, n)
+        col = col.copy()
+        col[0, -1], col[-1, -2] = -1, 500       # outside [0, 128): zero rows
+        col_t = t(col, torch.int32)
+        table = torch.randn(n, d, generator=gen, device=dev).bfloat16()
+        got = pr.onehot_block_gather(col_t, table)
+        torch.cuda.synchronize()
+        check_same(f"L N={n} E={e} D={d} P={p}", got.float(),
+                   pr.onehot_block_gather_plain(col_t, table).float())
+        if e:
+            check_same(f"L N={n} E={e} D={d} against table[senders]",
+                       got[t(slot, torch.int64)].float(),
+                       table[t(send, torch.int64)].float())
+    return errs
+
+
+def phase_kernel_checks(rng, dev, graph, probes):
     import torch
 
     from ragraph_tpu_torch.ops import csr_segment as cs
@@ -624,6 +736,7 @@ def phase_kernel_checks(rng, dev, graph):
     errs.update(bucket_kernel_checks(gen, dev, q, keys))
     del q, keys
     errs.update(hi_kernel_checks(rng, dev, graph))
+    errs.update(probe_kernel_checks(rng, dev, probes))
 
     for n, e, d, hub in ((37, 1001, 64, False), (300, 4099, 18, True),
                          (5, 3, 2, False), (64, 777, 130, True),
@@ -1039,6 +1152,7 @@ def phase_small_training_agreement(dev):
     on the card against the same step on CPU tensors (plain versions)."""
     import torch
 
+    from ragraph_tpu_torch.bench.main_path import make_rows, xavier_tables
     from ragraph_tpu_torch.convert import params_from_jax
     from ragraph_tpu_torch.data.edgelist import load_edge_dataset
     from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
@@ -1088,6 +1202,7 @@ def phase_small_agreement(dev):
     """The same path on a small graph, on the card and on the CPU."""
     import torch
 
+    from ragraph_tpu_torch.bench.main_path import make_rows, xavier_tables
     from ragraph_tpu_torch.convert import params_from_jax
     from ragraph_tpu_torch.data.edgelist import load_edge_dataset
     from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
@@ -1118,6 +1233,7 @@ def phase_cli(dev):
     import os
     import tempfile
 
+    from ragraph_tpu_torch.bench.main_path import xavier_tables
     from ragraph_tpu_torch.cli import edge as cli
     from ragraph_tpu_torch.train.checkpoint import save_checkpoint
     print("phase 5: CLI on the card (synthetic stream)", flush=True)
@@ -1149,7 +1265,341 @@ def phase_cli(dev):
           f"vanilla {recalls}", flush=True)
 
 
-def phase_timing(dev, graph, errs, launches):
+def phase_probe_scripts():
+    """The three probe scripts and the main-path script's top-k arm, each
+    through its ``main`` as ``python -m ragraph_tpu_torch.bench.<name>``
+    runs it, with the launches counted from zero: the path of kernels J, K
+    and L."""
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.bench import (exact_phases, onehot_gather,
+                                         packed_table_gather)
+    print("phase 4e: the probe scripts (kernels J, K, L)", flush=True)
+    launches, records = {}, {}
+    for mod, kernel, keys in (
+            (exact_phases, "mm_probe", ("ms", "dependent_over_independent")),
+            (packed_table_gather, "packed_table_segsum",
+             ("ms", "max_rel_diff")),
+            (onehot_gather, "onehot_gather", ("ms", "mismatched", "P"))):
+        native.reset_launches()
+        rec = mod.main([])
+        got = dict(native.LAUNCHES)
+        if got.get(kernel, 0) <= 0 or got != rec["launches"]:
+            fail(f"{mod.__name__}: launches {got}, its record says "
+                 f"{rec['launches']}")
+        if rec["device"]["platform"] != "gpu" or any(k not in rec
+                                                     for k in keys):
+            fail(f"{mod.__name__}: record lacks one of {keys} or was not "
+                 f"taken on the card")
+        launches[kernel] = got[kernel]
+        records[rec["bench"]] = rec
+    thr = records["exact_phases"]["ms"]["throughput"]
+    # the probe must cost what the full product costs: phase 1 without its
+    # group maximum, not a 128th of it
+    if not 0.5 * thr["phase1"] <= thr["matmul_proxy"] <= 1.1 * thr["phase1"]:
+        fail(f"matmul proxy {thr['matmul_proxy']:.3f} ms against phase 1 "
+             f"{thr['phase1']:.3f} ms: the probe does not time the product")
+    return launches
+
+
+def write_tu_dataset(root, ds):
+    """``ds`` as raw TU text files under ``root/<name>/``."""
+    import os
+    base = os.path.join(root, ds.name)
+    os.makedirs(base, exist_ok=True)
+    off, edges, indicator = 0, [], []
+    for gid, g in enumerate(ds.graphs):
+        r, c = np.nonzero(g.adj)
+        edges.append(np.stack([r, c], axis=1) + off + 1)
+        indicator.append(np.full(g.adj.shape[0], gid + 1))
+        off += g.adj.shape[0]
+    prefix = os.path.join(base, ds.name)
+    np.savetxt(prefix + "_A.txt", np.concatenate(edges), fmt="%d",
+               delimiter=", ")
+    np.savetxt(prefix + "_graph_indicator.txt", np.concatenate(indicator),
+               fmt="%d")
+    np.savetxt(prefix + "_graph_labels.txt",
+               np.array([g.graph_label for g in ds.graphs]), fmt="%d")
+    np.savetxt(prefix + "_node_labels.txt", np.concatenate(
+        [g.node_labels.argmax(axis=1) for g in ds.graphs]), fmt="%d")
+    np.savetxt(prefix + "_node_attributes.txt", np.concatenate(
+        [g.features for g in ds.graphs]), fmt="%.9g", delimiter=", ")
+
+
+def phase_small_node_agreement(dev):
+    """A small node ``forward`` (training-free and finetune mode) on the
+    card against the same state on the CPU. The store has 40,000 rows, so
+    the card retrieves through kernel C and the CPU through its plain
+    version; their f32 sums differ in order, which can swap two rows whose
+    bf16 scores are all but equal, so agreement is asked of 99% of the
+    nodes, at 1e-4."""
+    import copy
+
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.data.batching import flat_batches, stacked_batches
+    from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
+    from ragraph_tpu_torch.models.ragraph_node import (
+        RAGraphNode, RAGraphNodeConfig, RAGraphNodeState)
+    from ragraph_tpu_torch.rag.library import LibraryConfig
+    print("phase 5: small node forward, card against CPU", flush=True)
+    ds = synthetic_tu_dataset(seed=SEED + 40, num_graphs=40)
+    libcfg = LibraryConfig(retrieve_num=4, num_augment_scale=0)
+    for finetune in (False, True):
+        cfg = RAGraphNodeConfig(emb_size=64, finetune=finetune,
+                                library=libcfg)
+        cpu_task = RAGraphNode(cfg, 16, device="cpu")
+        state = cpu_task.init_state(torch.Generator().manual_seed(SEED),
+                                    library_capacity=40_000)
+        state = cpu_task.build_library(
+            state, stacked_batches(ds.graphs[:30], 8, num_classes=3),
+            torch.Generator().manual_seed(SEED + 1))
+        graph = next(flat_batches(ds.graphs[30:], 10, num_classes=3))
+        with torch.no_grad():
+            want = cpu_task.forward(state, graph)
+        task = RAGraphNode(cfg, 16, device=dev)
+        on_card = RAGraphNodeState(copy.deepcopy(state.encoder).to(dev),
+                                   copy.deepcopy(state.decoder).to(dev),
+                                   state.library.to(dev))
+        native.reset_launches()
+        with torch.no_grad():
+            got = task.forward(on_card, graph.to(dev)).cpu()
+        if native.LAUNCHES.get("fused_cosine_topk", 0) != 1:
+            fail("small node forward: kernel C was not launched once")
+        real = graph.node_mask
+        err = (got - want).abs().amax(dim=1)[real]
+        share = float((err <= 1e-4).float().mean())
+        print(f"  finetune={finetune}: {int(real.sum())} nodes, "
+              f"{share:.4f} agree within 1e-4, max_abs_err="
+              f"{float(err.max()):.3e}", flush=True)
+        if share < 0.99 or not bool(torch.isfinite(got).all()):
+            fail(f"small node forward (finetune={finetune}) disagrees "
+                 f"with the CPU")
+
+
+NODE_GRAPHS = 3000          # 1,500 train graphs x 4 copies x 10 = 60,000 rows
+NODE_HIDDEN = 256
+NODE_BATCH = 16
+NODE_CAPACITY = 65536       # the CLI's default
+
+
+def phase_node_path(dev):
+    """The static node pipeline at full width: hidden 256, batch 16, a
+    65,536-row library that the train split fills to 60,000 rows and the val
+    append runs into the clamp. ``cli.node vanilla`` and ``finetune`` run on
+    the dataset read from TU text files, each with an observer that times
+    the CLI's own stages and, between them, holds kernel C to its plain
+    version on the run's queries and store. Returns kernel C's largest
+    error at these shapes."""
+    import contextlib
+    import copy
+    import tempfile
+
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.bench import timing
+    from ragraph_tpu_torch.cli import node as cli
+    from ragraph_tpu_torch.data.batching import flat_batches
+    from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
+    from ragraph_tpu_torch.models.ragraph_node import RAGraphNodeState
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.rag.library import retrieve
+    print(f"phase 9: node path, {NODE_GRAPHS} graphs, hidden {NODE_HIDDEN}, "
+          f"batch {NODE_BATCH}, library capacity {NODE_CAPACITY}", flush=True)
+    ds = synthetic_tu_dataset(seed=0, num_graphs=NODE_GRAPHS, num_classes=3,
+                              feat_dim=16, name="SYNTH3000")
+    n_train = int(.5 * NODE_GRAPHS)
+    n_val = int(.8 * NODE_GRAPHS) - n_train
+    n_test = NODE_GRAPHS - int(.8 * NODE_GRAPHS)
+    val_batches, test_batches = -(-n_val // NODE_BATCH), \
+        -(-n_test // NODE_BATCH)
+
+    @contextlib.contextmanager
+    def uncounted():
+        """Launches made inside are the checks', not the run's."""
+        before = dict(native.LAUNCHES)
+        try:
+            yield
+        finally:
+            native.LAUNCHES.clear()
+            native.LAUNCHES.update(before)
+
+    class Probe(cli.RunObserver):
+        """Times the CLI's stages and checks the state between them."""
+
+        def __init__(self, mode):
+            self.mode, self.out, self.c_err = mode, {}, 0.0
+            self.out["finetune_losses"] = []
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            self.out.setdefault(f"{name}_s", []).append(
+                time.perf_counter() - t0)
+
+        def after(self, name, **o):
+            with uncounted():
+                getattr(self, f"after_{name}")(**o)
+
+        def check_retrieval(self, when, task, state, libcfg, val, pad):
+            """Kernel C at the shape ``retrieve`` gives it: one padded val
+            batch's embeddings against the live store, normalised as
+            ``cosine_topk`` normalises them, under the store's valid mask."""
+            g0 = next(flat_batches(val.graphs, NODE_BATCH, pad, num_classes=3,
+                                   device=dev))
+            with torch.no_grad():
+                emb = state.encoder.inference(g0.features, g0.adj,
+                                              g0.node_mask)
+            lib = state.library
+            k = libcfg.retrieve_num
+            self.c_err = max(self.c_err, check_topk(
+                f"C node shape {when}: Q={emb.shape[0]} R={lib.capacity} "
+                f"E={emb.shape[1]} k={k} valid={int(lib.fill)}",
+                l2_normalize(emb), l2_normalize(lib.live()[0]), k,
+                lib.valid_mask))
+            return g0, emb
+
+        def after_library_build_train(self, task, state, libcfg, train, val,
+                                      pad):
+            fill = int(state.library.fill)
+            want = len(train.graphs) * (1 + libcfg.num_augment_scale) \
+                * libcfg.num_inverse_sample
+            if fill != want or fill <= 32_768:
+                fail(f"node library holds {fill} rows after the train "
+                     f"split, expected {want}")
+            self.out["library_rows_train"] = fill
+            self.out["library_rows_per_s"] = \
+                fill / self.out["library_build_train_s"][-1]
+            g0, emb = self.check_retrieval("after the train build", task,
+                                           state, libcfg, val, pad)
+            native.reset_launches()
+            rag_emb, rag_labels = retrieve(state.library, emb, libcfg)
+            torch.cuda.synchronize()
+            n_c = native.LAUNCHES.get("fused_cosine_topk", 0)
+            if n_c != 1:
+                fail(f"retrieve launched kernel C {n_c} times, not once")
+            k = libcfg.retrieve_num
+            if tuple(rag_emb.shape) != (pad, k, NODE_HIDDEN) \
+                    or tuple(rag_labels.shape) != (pad, k, 3) \
+                    or not bool(torch.isfinite(rag_emb).all()):
+                fail(f"retrieve returned {tuple(rag_emb.shape)} and "
+                     f"{tuple(rag_labels.shape)}")
+            # every retrieved label row is a one-hot row of the store
+            if not bool((rag_labels[g0.node_mask].sum(dim=-1) == 1).all()):
+                fail("retrieve returned a row outside the live store")
+            self.out["retrieve_ms"] = cuda_ms(
+                lambda: retrieve(state.library, emb, libcfg))
+            self.out["retrieve_queries"] = pad
+            self.out["retrieve_rows"] = NODE_CAPACITY
+
+        def after_finetune_epoch(self, losses):
+            self.out["finetune_losses"].append(
+                float(torch.stack(losses).mean()))
+
+        def after_finetune(self, task, state, optimizer, batches):
+            # the step's split, on a copy so that the run's weights stay
+            # the CLI's own
+            twin = RAGraphNodeState(copy.deepcopy(state.encoder),
+                                    copy.deepcopy(state.decoder),
+                                    state.library)
+            opt = task.make_optimizer(twin, 1e-3)
+            box = {}
+
+            def forward():
+                opt.zero_grad(set_to_none=True)
+                box["loss"] = task.loss(twin, batches[0])
+
+            fwd, bwd, step = timing.split_ms(
+                [forward, lambda: box["loss"].backward(), opt.step], 5, dev)
+            self.out["finetune_step_ms"] = {
+                "forward": fwd, "backward": bwd, "optimizer": step,
+                "step": fwd + bwd + step}
+            for name, prm in list(twin.encoder.named_parameters()) \
+                    + list(twin.decoder.named_parameters()):
+                if name.startswith("gcn.bns"):
+                    continue    # the batch norms run only in pretraining
+                if prm.grad is None \
+                        or not bool(torch.isfinite(prm.grad).all()) \
+                        or float(prm.grad.abs().max()) == 0.0:
+                    fail(f"node finetune step: gradient of {name} missing, "
+                         f"non-finite or all zero")
+
+        def after_library_build_val(self, task, state, libcfg, train, val,
+                                    pad):
+            if int(state.library.fill) != NODE_CAPACITY:
+                fail(f"node library holds {int(state.library.fill)} rows "
+                     f"after the val append, expected the capacity "
+                     f"{NODE_CAPACITY}")
+            self.check_retrieval("after the val append", task, state, libcfg,
+                                 val, pad)
+
+    out, c_err = {}, 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        write_tu_dataset(tmp, ds)
+        common = ["--dataset", ds.name, "--data-root", tmp, "--save-dir",
+                  f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
+                  "--hidden", str(NODE_HIDDEN), "--batch-size",
+                  str(NODE_BATCH), "--library-capacity", str(NODE_CAPACITY),
+                  "--test-times", "1", "--device", str(dev)]
+        for mode, extra, want_c in (
+                ("vanilla", [], test_batches),
+                ("finetune", ["--epochs", "2"],
+                 2 * val_batches + test_batches)):
+            probe = Probe(mode)
+            native.reset_launches()
+            t0 = time.perf_counter()
+            mean = cli.main([mode] + common + extra, observer=probe)
+            torch.cuda.synchronize()
+            res = probe.out
+            res["cli_s"] = time.perf_counter() - t0
+            launches = dict(native.LAUNCHES)
+            res["accuracy"], res["launches"] = mean / 100.0, launches
+            out[mode], c_err = res, max(c_err, probe.c_err)
+            with open(f"{tmp}/results/{mode}_node_{ds.name}.json") as f:
+                written = json.load(f)
+            if sorted(written) != ["accuracy", "mean", "std"] \
+                    or written["mean"] != mean:
+                fail(f"cli.node {mode}: result file holds {written}")
+            if launches.get("fused_cosine_topk", 0) != want_c:
+                fail(f"cli.node {mode}: kernel C launched "
+                     f"{launches.get('fused_cosine_topk', 0)} times, "
+                     f"expected {want_c} (one per retrieve)")
+            if not mean / 100.0 > 0.5:
+                fail(f"cli.node {mode}: accuracy {mean / 100.0} is not above "
+                     f"0.5 (chance 0.33)")
+            for stage in ("library_build_train_s", "library_build_val_s",
+                          "test_accuracy_s"):
+                if len(res.get(stage, ())) != 1:
+                    fail(f"cli.node {mode}: stage {stage} ran "
+                         f"{len(res.get(stage, ()))} times, not once")
+                res[stage] = res[stage][0]
+            print(f"  cli.node {mode}: accuracy {mean / 100.0:.4f} in "
+                  f"{res['cli_s']:.1f} s (checks included), launches "
+                  f"{launches}", flush=True)
+        losses = out["finetune"]["finetune_losses"]
+        if len(losses) != 2 or not np.isfinite(losses).all() \
+                or not losses[-1] < losses[0]:
+            fail(f"node finetune: losses {losses} are not finite and falling")
+        if "finetune_step_ms" not in out["finetune"] \
+                or out["vanilla"]["finetune_losses"]:
+            fail("cli.node: the finetune stages ran in the wrong mode")
+        for bad in (["pretrain"], ["vanilla", "--level", "graph"],
+                    ["vanilla", "--mesh", "dp=1,idx=1"]):
+            try:
+                cli.main(bad + common)
+            except SystemExit as e:
+                if "ROADMAP.md" in str(e):
+                    continue
+            fail(f"cli.node {bad} did not exit with a pointer to ROADMAP.md")
+    print(json.dumps({"node_path": out}), flush=True)
+    return c_err
+
+
+def phase_timing(dev, graph, errs, launches, probes):
     import torch
 
     from ragraph_tpu_torch.ops import csr_segment as cs
@@ -1365,6 +1815,85 @@ def phase_timing(dev, graph, errs, launches):
                                                 reps=20),
         "bucket_live_slots": n_live,
         "bucket_overflow_pairs": CHUNK * K_PATH - n_live})
+    del st, qh, kh, bm, assign, cand
+    torch.cuda.empty_cache()
+
+    # J, K, L at their scripts' shapes, on the scripts' own inputs
+    from ragraph_tpu_torch.ops import probes as pr
+    jk, jq = probes["J"]["keys"], probes["J"]["q_bf"]
+    r_j, e_j = jk.shape
+    q_j = jq.shape[0]
+    kin, lin = probes["K"], probes["L"]
+    tp = pr.pack_table(kin["table"])
+    par = (kin["send"] & 1).float()
+    k_args = (tp, kin["w"] * (1 - par), kin["w"] * par,
+              (kin["send"] >> 1).contiguous(), kin["indptr"])
+    n_k, d_k = kin["table"].shape
+    e_k = kin["send"].shape[0]
+    # K's library call: the packed table read as its (N, D) rows, times a CSR
+    # with both halves' bf16-rounded weights of every edge (2E nonzeros)
+    k_dense = tp.view(n_k, d_k).float()
+    k_cols = torch.stack([2 * k_args[3].long(), 2 * k_args[3].long() + 1], 1)
+    k_vals = torch.stack([k_args[1], k_args[2]], 1).to(torch.bfloat16).float()
+    with warnings.catch_warnings():    # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        k_csr = torch.sparse_csr_tensor(
+            2 * kin["indptr"].long(), k_cols.reshape(-1), k_vals.reshape(-1),
+            size=(n_k, n_k))
+    k_ref = pr.packed_table_segsum(*k_args)
+    k_lib_diff = float((torch.sparse.mm(k_csr, k_dense) - k_ref).abs().max())
+    if not k_lib_diff <= 5e-4 * float(k_ref.abs().max()):
+        fail(f"K's library call (torch.sparse.mm) differs from the kernel "
+             f"by {k_lib_diff:.3e}")
+    del k_cols, k_vals, k_ref
+    nb_l, p_l = lin["col"].shape
+    n_l, d_l = lin["table"].shape
+    l_idx = lin["senders"].long()
+    probe_runs = {
+        # name: (key in errs, source line of the TPU kernel, kernel, plain
+        # version, library call, bytes, operations, peak rate)
+        "mm_probe": (
+            "J", "benchmarks/bench_exact_phases.py:212",
+            lambda: pr.matmul_probe(jk, jq, 0),
+            lambda: pr.matmul_probe_plain(jk, jq, 0),
+            lambda: torch.matmul(jk, jq.T),
+            2 * r_j * e_j + 2 * q_j * e_j + 4 * -(-r_j // 128) * q_j,
+            2 * r_j * q_j * e_j, BF16_FLOP_PER_MS),
+        "packed_table_segsum": (
+            "K", "experiments/packed_table_gather_bench.py:46",
+            lambda: pr.packed_table_segsum(*k_args),
+            lambda: pr.packed_table_segsum_plain(*k_args),
+            lambda: torch.sparse.mm(k_csr, k_dense),
+            2 * n_k * d_k + 4 * e_k + 8 * e_k + 4 * (n_k + 1)
+            + 4 * n_k * d_k, 4 * e_k * d_k, F32_FLOP_PER_MS),
+        "onehot_gather": (
+            "L", "experiments/onehot_gather_bench.py:59",
+            lambda: pr.onehot_block_gather(lin["col"], lin["table"]),
+            lambda: pr.onehot_block_gather_plain(lin["col"], lin["table"]),
+            lambda: torch.index_select(lin["table"], 0, l_idx),
+            4 * nb_l * p_l + 2 * n_l * d_l + 2 * nb_l * p_l * d_l, 0,
+            F32_FLOP_PER_MS),
+    }
+    for name, (key, line, kernel, plain, library, n_bytes, n_ops,
+               rate) in probe_runs.items():
+        by_bytes, by_ops = n_bytes / HBM_BYTES_PER_MS, n_ops / rate
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="ragraph_tpu_torch/csrc/probes.cu", replaces=line,
+            launches=launches.get(name, 0), max_abs_err=errs[key],
+            ms=cuda_ms(kernel, reps=10),
+            plain_ms=cuda_ms(plain, reps=2, warmup=1),
+            bound_ms=max(by_bytes, by_ops),
+            bound_by="bytes" if by_bytes >= by_ops else "operations",
+            library_ms=None if library is None else cuda_ms(library,
+                                                            reps=5)))
+    detail.update({
+        "K_kernel_A_same_edges": cuda_ms(lambda: cs._csr_gather_scale(
+            kin["table"], kin["w"], kin["send"], kin["indptr"], True)),
+        "K_max_abs_diff_to_kernel_A": errs["K_vs_A"],
+        "K_max_abs_diff_to_library": k_lib_diff,
+        "J_kernel_D_same_inputs": cuda_ms(lambda: bt.bucket_max(jk, jq),
+                                          reps=10)})
     print(json.dumps({"detail_ms": detail}), flush=True)
     return kernels
 
@@ -1408,27 +1937,13 @@ def check_step(name, trainer, params, batch, gen, want_launches,
     return launches
 
 
-def finetune_rows(rng):
-    """A stage-sized finetune split and its test rows, after the pretrain
-    rows in time."""
-    t0 = 1_600_000_000 + 30 * 24 * 3600
-    users = rng.integers(0, U, FT_ROWS)
-    items = rng.integers(0, I, FT_ROWS)
-    times = t0 + rng.integers(0, 24 * 3600, FT_ROWS)
-    ft = list(zip(users.tolist(), items.tolist(), times.tolist()))
-    tu = rng.choice(U, U // 8, replace=False)
-    ti = rng.integers(0, I, len(tu))
-    stage = list(zip(tu.tolist(), ti.tolist(),
-                     (t0 + 24 * 3600 + np.arange(len(tu))).tolist()))
-    return ft, stage
-
-
 def phase_training(dev, train_rows, ds, graph):
     """Training at full width: pretrain epochs through ``EdgeTrainer.train``,
     then one stage of ``staged_finetune``."""
     import torch
 
     from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.bench.main_path import finetune_rows
     from ragraph_tpu_torch.data.edgelist import load_edge_dataset
     from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
                                                EdgeModelConfig, RAGraphEdge,
@@ -1487,7 +2002,7 @@ def phase_training(dev, train_rows, ds, graph):
 
     # one finetune step apart: launches per step and the gate's gradient
     rng = np.random.default_rng(SEED + 14)
-    ft_rows, stage_rows = finetune_rows(rng)
+    ft_rows, stage_rows = finetune_rows(rng, U, I, FT_ROWS)
     ft_ds = load_edge_dataset(ft_rows, stage_rows, num_users=U, num_items=I,
                               phase="finetune")
     ft_model = RAGraphEdge(cfg, EdgeGraphArrays.from_dataset(ft_ds, dev),
@@ -1541,63 +2056,16 @@ def phase_training(dev, train_rows, ds, graph):
     return ft_model, ft_params, model, params, batch
 
 
-def time_step(model, params, batch, gen, reps):
-    """Milliseconds of one training step's forward (``cal_loss``), backward
-    and Adam update, each between CUDA events, averaged over ``reps``."""
-    import torch
-
-    from ragraph_tpu_torch.train.trainer import EdgeTrainer
-    trainer = EdgeTrainer(model, None, logger=lambda *_: None)
-    leaves, optimizer = trainer.prepare(params)
-    graph, resources = trainer._graph_and_resources()
-    sums = [0.0, 0.0, 0.0]
-    for rep in range(reps + 1):         # the first pass warms up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        ev[0].record()
-        loss, _ = model.cal_loss(leaves, batch, gen, graph=graph,
-                                 resources=resources)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        optimizer.step()
-        ev[3].record()
-        ev[3].synchronize()
-        if rep:
-            for j in range(3):
-                sums[j] += ev[j].elapsed_time(ev[j + 1])
-    fwd, bwd, opt = (x / reps for x in sums)
-    return {"forward": fwd, "backward": bwd, "optimizer": opt,
-            "step": fwd + bwd + opt}
-
-
 def phase_step_timing(dev, trained):
     """A pretrain step and a finetune step beside the same step on plain
     PyTorch ops: ``index_add_`` propagation in f32 with autograd's backward,
-    and a matmul with ``torch.topk`` for the retrieval."""
-    import dataclasses
-
+    and a matmul with ``torch.topk`` for the retrieval
+    (``ragraph_tpu_torch.bench.main_path.step_timings``)."""
     import torch
 
-    from ragraph_tpu_torch.ops import topk
-    ft_model, ft_params, model, params, batch = trained
+    from ragraph_tpu_torch.bench.main_path import step_timings
     gen = torch.Generator(dev).manual_seed(SEED + 16)
-    out = {"pretrain_step_ms": time_step(model, params, batch, gen, 10),
-           "finetune_step_ms": time_step(ft_model, ft_params, batch, gen, 3)}
-    threshold = topk.AUTO_APPROX_THRESHOLD
-    for m in (model, ft_model):
-        m.cfg = dataclasses.replace(m.cfg, segsum_impl="scatter",
-                                    propagate_dtype="f32")
-    topk.AUTO_APPROX_THRESHOLD = 1 << 62    # "auto" takes matmul + topk
-    try:
-        out["pretrain_step_plain_ms"] = time_step(model, params, batch, gen,
-                                                  5)
-        out["finetune_step_plain_ms"] = time_step(ft_model, ft_params, batch,
-                                                  gen, 2)
-    finally:
-        topk.AUTO_APPROX_THRESHOLD = threshold
-    print(json.dumps(out), flush=True)
+    print(json.dumps(step_timings(*trained, gen, dev)), flush=True)
 
 
 def main() -> int:
@@ -1607,6 +2075,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.bench.main_path import make_rows, xavier_tables
     from ragraph_tpu_torch.convert import params_from_jax
     from ragraph_tpu_torch.data.edgelist import load_edge_dataset
     from ragraph_tpu_torch.models.edge import EdgeGraphArrays
@@ -1638,7 +2107,8 @@ def main() -> int:
     if graph.num_edges != 2 * M or graph.num_nodes != U + I:
         fail("main-path graph has the wrong size")
 
-    errs = phase_kernel_checks(rng, dev, graph)
+    probes = probe_inputs(dev)
+    errs = phase_kernel_checks(rng, dev, graph, probes)
     launches, keys = phase_main_path(dev, ds, graph, params)
     launches.update(phase_exact_tier(dev, params, keys))
     phase_huge_k(dev, graph, params)
@@ -1647,13 +2117,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(phase_ops_path(dev, graph))
     torch.cuda.empty_cache()
+    launches.update(phase_probe_scripts())
     phase_small_agreement(dev)
     phase_small_training_agreement(dev)
+    phase_small_node_agreement(dev)
     phase_cli(dev)
     trained = phase_training(dev, train, ds, graph)
     del train
-    kernels = phase_timing(dev, graph, errs, launches)
+    errs["C"] = max(errs["C"], phase_node_path(dev))
+    kernels = phase_timing(dev, graph, errs, launches, probes)
     phase_step_timing(dev, trained)
+    if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):
+        fail(f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,13 +4,15 @@ The package mirrors the JAX package's layout (``ops/``, ``models/edge/``,
 ``train/``, ``data/``, ``cli/``) so each module's counterpart is easy to
 find. It imports ``torch`` and never ``jax`` or ``ragraph_tpu``.
 
-Ported so far: the RAGraph-edge pipeline. Serving (``generate`` ->
+Ported so far: the RAGraph-edge pipeline, serving (``generate`` ->
 ``make_resource_graph`` -> ``generate`` with RAG fusion -> ranking eval and
 ``recommend_from``) and training (``cal_loss``, ``EdgeTrainer``,
-``staged_finetune``, the ``pretrain``/``finetune``/``vanilla`` CLI). Its
-nine hand-written CUDA kernels live in ``csrc/`` and are built lazily by
-:mod:`ragraph_tpu_torch.native` on the first call that needs them; importing
-this package builds and loads nothing.
+``staged_finetune``, the ``pretrain``/``finetune``/``vanilla`` CLI); the
+static node pipeline's ``vanilla`` and ``finetune`` modes (``cli/node.py``,
+``models/ragraph_node.py``, ``rag/library.py``); and the bench scripts in
+``bench/``. Its twelve hand-written CUDA kernels live in ``csrc/`` and are
+built lazily by :mod:`ragraph_tpu_torch.native` on the first call that
+needs them; importing this package builds and loads nothing.
 
 Entry points take ``device`` (default ``"cuda"``) and raise when no card is
 present unless the caller asks for ``device="cpu"``, where every kernel

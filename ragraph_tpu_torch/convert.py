@@ -1,5 +1,5 @@
-"""Carry parameters and the retrieval library from the JAX package into the
-port."""
+"""Carry parameters and the retrieval libraries from the JAX package into
+the port."""
 
 from __future__ import annotations
 
@@ -68,3 +68,101 @@ def int8_keys_from_jax(table, device: str | torch.device = "cuda"
         raise ValueError(f"expected a 2-d int8 table, got {table.dtype} "
                          f"{table.shape}")
     return torch.from_numpy(table).to(resolve_device(device))
+
+
+# Heads of the JAX ``PrePrompt`` tree that the port does not use yet (the
+# pretraining heads): skipped by name.
+_PREPROMPT_SKIPPED = ("lp", "dgi", "graphcl_edge", "graphcl_mask")
+
+
+def _np32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def preprompt_params_from_jax(variables: dict) -> dict:
+    """Turn the flax variables of the JAX package's ``PrePrompt`` (numpy
+    leaves: ``{"params": {"gcn": {"conv_i": ..., "bn_i": ...}, <heads>},
+    "batch_stats": ...}``, as its pickle checkpoints hold them) into a
+    ``state_dict`` for :class:`ragraph_tpu_torch.models.preprompt.PrePrompt`
+    (CPU tensors). ``Dense_0/kernel`` is ``(in, out)`` and becomes the
+    ``(out, in)`` ``lin.weight``. The pretraining heads are skipped by name;
+    any other unknown entry raises. Batch-norm entries that the tree lacks
+    (an encoder initialised through ``inference`` has none) keep the
+    module's defaults: pass the result to ``load_state_dict(...,
+    strict=False)`` or through :func:`complete_preprompt_state`."""
+    params = variables.get("params", variables)
+    unknown = set(params) - {"gcn"} - set(_PREPROMPT_SKIPPED)
+    if unknown or "gcn" not in params:
+        raise ValueError(f"not a PrePrompt tree: entries {sorted(params)}")
+    out = {}
+    for name, sub in params["gcn"].items():
+        kind, _, i = name.partition("_")
+        if kind == "conv" and i.isdigit():
+            extra = set(sub) - {"Dense_0", "bias", "PReLU_0"}
+            if extra:
+                raise ValueError(f"gcn/{name}: unknown entries "
+                                 f"{sorted(extra)}")
+            out[f"gcn.convs.{i}.lin.weight"] = \
+                _np32(sub["Dense_0"]["kernel"]).T.contiguous()
+            if "bias" in sub:
+                out[f"gcn.convs.{i}.bias"] = _np32(sub["bias"])
+            if "PReLU_0" in sub:
+                out[f"gcn.convs.{i}.act.slope"] = \
+                    _np32(sub["PReLU_0"]["slope"])
+        elif kind == "bn" and i.isdigit():
+            out[f"gcn.bns.{i}.scale"] = _np32(sub["scale"])
+            out[f"gcn.bns.{i}.bias"] = _np32(sub["bias"])
+        else:
+            raise ValueError(f"gcn/{name}: not a layer the port knows")
+    stats = variables.get("batch_stats", {}).get("gcn", {})
+    for name, sub in stats.items():
+        i = name.partition("_")[2]
+        out[f"gcn.bns.{i}.mean"] = _np32(sub["mean"])
+        out[f"gcn.bns.{i}.var"] = _np32(sub["var"])
+    return out
+
+
+def complete_preprompt_state(partial: dict, module) -> dict:
+    """``partial`` filled up with ``module``'s own values for the entries it
+    lacks (the batch norms of a tree that never ran them); an entry that
+    ``module`` does not have raises."""
+    full = {k: v.detach().cpu().clone()
+            for k, v in module.state_dict().items()}
+    unknown = set(partial) - set(full)
+    if unknown:
+        raise ValueError(f"entries {sorted(unknown)} do not belong to the "
+                         f"encoder")
+    full.update(partial)
+    return full
+
+
+def decoder_params_from_jax(variables: dict) -> dict:
+    """The flax variables of the JAX package's ``TaskDecoder``
+    (``Dense_0``, ``Dense_1``) as a ``state_dict`` for the port's."""
+    params = variables.get("params", variables)
+    if set(params) != {"Dense_0", "Dense_1"}:
+        raise ValueError(f"not a TaskDecoder tree: entries {sorted(params)}")
+    out = {}
+    for i in (0, 1):
+        out[f"dense_{i}.weight"] = \
+            _np32(params[f"Dense_{i}"]["kernel"]).T.contiguous()
+        out[f"dense_{i}.bias"] = _np32(params[f"Dense_{i}"]["bias"])
+    return out
+
+
+def library_from_jax(keys, values, labels, positions, fill, capacity: int,
+                     device: str | torch.device = "cuda"):
+    """Carry the JAX package's ``ToyGraphLibrary`` (its four ``(capacity +
+    1, ...)`` arrays as numpy, its fill and capacity) to ``device``."""
+    from ragraph_tpu_torch.rag.library import ToyGraphLibrary
+    dev = resolve_device(device)
+    arrays = [np.array(a, dtype=np.float32)
+              for a in (keys, values, labels, positions)]
+    if any(a.ndim != 2 or a.shape[0] != capacity + 1 for a in arrays):
+        raise ValueError(f"library arrays must be 2-d with capacity + 1 = "
+                         f"{capacity + 1} rows, got "
+                         f"{[a.shape for a in arrays]}")
+    return ToyGraphLibrary(
+        *(torch.from_numpy(a).to(dev) for a in arrays),
+        fill=torch.tensor(int(fill), dtype=torch.int32, device=dev),
+        capacity=int(capacity))

@@ -1,0 +1,290 @@
+// The three probe kernels of the bench scripts (kernels J, K, L).
+//
+// They replace the Pallas kernels that live outside the ragraph_tpu package,
+// in its benchmark and experiment scripts:
+//   J  rg_mm_probe             benchmarks/bench_exact_phases.py::_mm_kernel
+//                              the full keys x queries product of which one
+//                              row of every 128-row group is written: phase 1
+//                              of the bucket top-k without the group maximum
+//   K  rg_packed_table_segsum  experiments/packed_table_gather_bench.py::
+//                              _pt_scan_kernel (with _packed_boundary and the
+//                              XLA gather `table_packed[idx_half]`): a weighted
+//                              segment sum from a table packed two rows to one
+//   L  rg_onehot_gather        experiments/onehot_gather_bench.py::
+//                              onehot_gather_kernel: a block-local row gather
+//
+// None is carried over block by block. The TPU versions feed the MXU: K forms
+// a prefix sum with two column-scaled strict triangles and L selects rows by a
+// one-hot matmul, because the TPU has no fast scatter or dynamic row
+// addressing. A GPU has both.
+//
+// What bounds each on an H100, at the scripts' shapes:
+//   J  operations: 2*R*Q*E = 137 GFLOP at R = 262,144, Q = 2,048, E = 128
+//      (0.14 ms at the bf16 tensor-core rate) against 67.6 MB of input and a
+//      16.8 MB result. It is kernel D's 64 x 64 f32-FMA tile (bucket_topk.cu)
+//      with the same dot order (rg_tile.cuh), so it runs as far above that
+//      bound as D does, and J[g, q] is bitwise kernel F's score of key
+//      128*g + pick_row. The written row is a runtime argument: every thread
+//      selects among its four keys by it after the products, so no product can
+//      be dropped at compile time and the probe times the whole tile.
+//   K  bytes: 8.4 MB of indices, 16.8 MB of weights, a 33.5 MB table (gathered
+//      2^21 times, from L2) and a 67 MB result at N = 2^18, D = 64, 2^21
+//      edges. Kernel A's walk (csr_segment.cu): one warp per receiver row,
+//      lanes own column pairs, and each edge's 2D-wide packed row gives both
+//      halves, each with its own weight. Direct sums in edge order, no prefix
+//      difference.
+//   L  bytes: the padded stream written (2,048 * P * 128 B, at least 268 MB),
+//      a 33.5 MB table and the columns read. One block per table block holds
+//      its 128 rows in shared memory and copies 16 bytes a thread.
+
+#include "rg_tile.cuh"
+
+namespace {
+
+using rg::fma4;
+using rg::kFull;
+
+constexpr int kLane = 128;     // rows per group (J) and per table block (L)
+constexpr int kBQ = 64;        // J: queries per block
+constexpr int kBR = 64;        // J: keys per tile (half a group)
+constexpr int kThreads = 256;  // J, L
+constexpr int kGroupsPerBlock = 8;  // J: groups one block walks over
+constexpr int kWarps = 8;      // K: receiver rows per block
+
+// ---- J ---------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+mm_probe_kernel(const __nv_bfloat16* __restrict__ keys,
+                const __nv_bfloat16* __restrict__ q, float* __restrict__ out,
+                int n_r, int n_q, int e, int n_groups, int pick_row) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = e + 4;
+  float* qs = smem;           // (BQ, E+4)
+  float* ks = qs + kBQ * ld;  // (BR, E+4)
+
+  const int q0 = blockIdx.x * kBQ;
+  const int g_begin = blockIdx.y * kGroupsPerBlock;
+  const int g_end = min(n_groups, g_begin + kGroupsPerBlock);
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;  // queries 4*ty .. 4*ty+3
+  const int tx = tid % 16;  // keys tx, tx+16, tx+32, tx+48
+  // where the written row sits in the tiles: half, thread column, key of four
+  const int p_half = pick_row / kBR;
+  const int p_tx = (pick_row % kBR) % 16;
+  const int p_j = (pick_row % kBR) / 16;
+
+  rg::load_rows<kThreads>(q, qs, q0, kBQ, n_q, e);
+
+  for (int g = g_begin; g < g_end; ++g) {
+    for (int half = 0; half < kLane / kBR; ++half) {
+      const long long r0 = (long long)g * kLane + half * kBR;
+      __syncthreads();  // the previous tile has been read (and qs written)
+      rg::load_rows<kThreads>(keys, ks, r0, kBR, n_r, e);
+      __syncthreads();
+
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int c = 0; c < e; c += 4) {
+        float4 a[4], bb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * ld + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bb[j] =
+              *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ld + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) fma4(acc[i][j], a[i], bb[j]);
+      }
+      // a runtime choice among the thread's four keys: all sixteen sums stay
+      // live up to here in every thread
+      float sel[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sel[i] = acc[i][0];
+#pragma unroll
+        for (int j = 1; j < 4; ++j) sel[i] = p_j == j ? acc[i][j] : sel[i];
+      }
+      if (half == p_half && tx == p_tx) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int gq = q0 + 4 * ty + i;
+          if (gq < n_q) out[(long long)g * n_q + gq] = sel[i];
+        }
+      }
+    }
+  }
+}
+
+// ---- K ---------------------------------------------------------------------
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// CH = number of 64-column chunks a lane covers (d <= 64 * CH).
+template <int CH>
+__global__ void __launch_bounds__(kWarps * 32)
+packed_table_kernel(const __nv_bfloat16* __restrict__ table,
+                    const float* __restrict__ w_lo,
+                    const float* __restrict__ w_hi,
+                    const int* __restrict__ idx_half,
+                    const int* __restrict__ indptr, float* __restrict__ out,
+                    long long n_rows, int d) {
+  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const int start = indptr[row];
+  const int end = indptr[row + 1];
+
+  float2 acc[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) acc[c] = make_float2(0.f, 0.f);
+
+  for (int base = start; base < end; base += 32) {
+    const int e = base + lane;
+    int my_src = 0;
+    float my_lo = 0.f, my_hi = 0.f;
+    if (e < end) {
+      my_src = idx_half[e];
+      my_lo = round_bf16(w_lo[e]);
+      my_hi = round_bf16(w_hi[e]);
+    }
+    const int cnt = min(32, end - base);
+#pragma unroll 4
+    for (int j = 0; j < cnt; ++j) {
+      const int s = __shfl_sync(kFull, my_src, j);
+      const float wl = __shfl_sync(kFull, my_lo, j);
+      const float wh = __shfl_sync(kFull, my_hi, j);
+      const __nv_bfloat16* rowp = table + (long long)s * 2 * d;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int col = 2 * (lane + 32 * c);
+        if (col < d) {
+          const float2 lo = load_pair(rowp + col);
+          const float2 hi = load_pair(rowp + d + col);
+          acc[c].x = fmaf(wl, lo.x, acc[c].x);
+          acc[c].y = fmaf(wl, lo.y, acc[c].y);
+          acc[c].x = fmaf(wh, hi.x, acc[c].x);
+          acc[c].y = fmaf(wh, hi.y, acc[c].y);
+        }
+      }
+    }
+  }
+  float* orow = out + row * (long long)d;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int col = 2 * (lane + 32 * c);
+    if (col < d) *reinterpret_cast<float2*>(orow + col) = acc[c];
+  }
+}
+
+// ---- L ---------------------------------------------------------------------
+
+// One block per table block of 128 rows; a row is `chunks` 16-byte pieces.
+__global__ void __launch_bounds__(kThreads)
+onehot_gather_kernel(const int* __restrict__ col,
+                     const uint4* __restrict__ table, uint4* __restrict__ out,
+                     int p, long long n_rows, int chunks) {
+  extern __shared__ __align__(16) uint4 tab[];  // (128, chunks)
+  const long long b = blockIdx.x;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int t = threadIdx.x; t < kLane * chunks; t += kThreads) {
+    const long long gr = b * kLane + t / chunks;
+    tab[t] = gr < n_rows ? table[b * kLane * chunks + t] : zero;
+  }
+  __syncthreads();
+  const int* cols = col + b * p;
+  uint4* dst = out + b * p * chunks;
+  for (int u = threadIdx.x; u < p * chunks; u += kThreads) {
+    const int s = u / chunks;
+    const int c = u - s * chunks;
+    const int cv = cols[s];
+    dst[u] = (unsigned)cv < (unsigned)kLane ? tab[cv * chunks + c] : zero;
+  }
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel J. keys (R, E) and q (Q, E) bf16, row-major, E % 8 == 0, E <= 256;
+// 0 <= pick_row < 128. out is (ceil(R / 128), Q) f32:
+// out[g, j] = keys[128 * g + pick_row] . q[j], 0 where that row is past R.
+int rg_mm_probe(const void* keys, const void* q, void* out, int n_r, int n_q,
+                int e, int pick_row, void* stream) {
+  if (n_r == 0 || n_q == 0) return (int)cudaGetLastError();
+  const int n_groups = (n_r + kLane - 1) / kLane;
+  const size_t smem = sizeof(float) * (kBQ + kBR) * ((size_t)e + 4);
+  cudaError_t err = allow_smem((const void*)mm_probe_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_q + kBQ - 1) / kBQ,
+                  (n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
+  mm_probe_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(keys),
+      static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), n_r,
+      n_q, e, n_groups, pick_row);
+  return (int)cudaGetLastError();
+}
+
+// Kernel K. table (M, 2d) bf16: packed row m holds [row 2m | row 2m + 1] of
+// the (2M, d) table; idx_half (E,) int32 packed rows; w_lo, w_hi (E,) f32,
+// rounded to bf16 here; indptr (n_rows + 1,) int32 over the receiver-sorted
+// edges; d even, d <= 128. out is (n_rows, d) f32:
+// out[r] = sum_e w_lo[e] * table[idx_half[e], :d] + w_hi[e] * table[.., d:].
+int rg_packed_table_segsum(const void* table, const void* w_lo,
+                           const void* w_hi, const void* idx_half,
+                           const void* indptr, void* out, long long n_rows,
+                           int d, void* stream) {
+  if (n_rows == 0) return (int)cudaGetLastError();
+  const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
+  const dim3 block(kWarps * 32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
+  const float* wl = static_cast<const float*>(w_lo);
+  const float* wh = static_cast<const float*>(w_hi);
+  const int* ix = static_cast<const int*>(idx_half);
+  const int* ip = static_cast<const int*>(indptr);
+  float* o = static_cast<float*>(out);
+  if (d <= 64)
+    packed_table_kernel<1><<<grid, block, 0, s>>>(t, wl, wh, ix, ip, o,
+                                                  n_rows, d);
+  else
+    packed_table_kernel<2><<<grid, block, 0, s>>>(t, wl, wh, ix, ip, o,
+                                                  n_rows, d);
+  return (int)cudaGetLastError();
+}
+
+// Kernel L. col (nb, p) int32 block-local rows; table (n_rows, d) bf16 with
+// ceil(n_rows / 128) == nb, d % 8 == 0, d <= 512. out is (nb * p, d) bf16:
+// out[b * p + s] = table[128 * b + col[b, s]], a zero row where col[b, s] is
+// outside [0, 128) or that table row is past n_rows.
+int rg_onehot_gather(const void* col, const void* table, void* out, int nb,
+                     int p, long long n_rows, int d, void* stream) {
+  if (nb == 0 || p == 0) return (int)cudaGetLastError();
+  const int chunks = d / 8;
+  const size_t smem = sizeof(uint4) * kLane * (size_t)chunks;
+  cudaError_t err = allow_smem((const void*)onehot_gather_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  onehot_gather_kernel<<<nb, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(col), static_cast<const uint4*>(table),
+      static_cast<uint4*>(out), p, n_rows, chunks);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -62,6 +62,12 @@ _SIGNATURES = {
     # msgs2, w, indptr, out, n_rows, d, block, bf16 rows, round to bf16,
     # stream
     "rg_csr_segsum_packed2_w": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+    # keys, q, out, R, Q, E, written row of each 128-row group, stream
+    "rg_mm_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # packed table, w_lo, w_hi, idx_half, indptr, out, n_rows, d, stream
+    "rg_packed_table_segsum": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # col, table, out, blocks, slots per block, table rows, d, stream
+    "rg_onehot_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
 }
 
 
