@@ -10,8 +10,8 @@ batch of these arms:
                 JAX script has ``approx_max_k``, which a GPU cannot run.
   full          ``bucketed_exact_topk`` (kernels D, E, F, G and the glue)
   phase1        kernel D alone: the bucket maxima
-  matmul_proxy  kernel J: D's tile and dot order without the 128-group
-                maximum, one row in 128 written (isolates the reduce)
+  matmul_proxy  kernel J: the full product on kernel C's tensor-core tile,
+                one row in 128 written, no 128-group maximum
   glue          kernel E over a fixed bucket-max matrix plus the pair
                 inversion (``invert_pairs``)
 

@@ -11,18 +11,18 @@
 // PyTorch code in ragraph_tpu_torch/ops/bucket_topk.py.
 //
 // Exactness across the phases needs D's maxima to be the very values F
-// returns: both add the exact bf16 products in rg::fma4's order (rg_tile.cuh),
-// which is kernel C's order too.
+// returns: both add the exact bf16 products in rg::fma4's order (rg_tile.cuh).
+// Kernel C sums the same products on the tensor cores, in another order.
 //
 // What bounds each on an H100, at Q = 2,048 queries, R = 262,144 keys,
 // E = 64, k = 10:
 //   D  operations: 2*Q*R*E = 68.7 GFLOP (0.07 ms at the bf16 tensor-core
 //      rate) against 34 MB of input and a 16.8 MB result. This version
-//      multiplies with f32 FMAs, as kernel C does, and so runs far above the
-//      bound; tensor-core tiles are later work. It keeps C's 64 x 64 tile
-//      with a 4 x 4 register tile per thread, and reduces each thread's four
-//      keys, then the 16 threads of a query row, with shuffles: the (Q, R)
-//      scores never leave registers.
+//      multiplies with f32 FMAs, and so runs far above the bound; moving it
+//      onto rg_mma.cuh's tensor-core tile is later work. It takes a 64 x 64
+//      tile with a 4 x 4 register tile per thread, and reduces each thread's
+//      four keys, then the 16 threads of a query row, with shuffles: the
+//      (Q, R) scores never leave registers.
 //   E  bytes: the (2,048, 2,048) f32 maxima are read once (16.8 MB). Columns
 //      are strided in memory, so a warp takes 32 neighbouring columns of one
 //      row (a 128-byte line) and the rows are dealt out over the block's

@@ -3,168 +3,315 @@
 // Replaces ragraph_tpu/ops/pallas_retrieval.py::_kernel (with _insert_merge
 // and _merge_topk): for L2-normalised bf16 queries (Q, E) and keys (R, E),
 // the k best scores per query, sorted descending, with their key indices.
-// Products of bf16 values are exact in f32 and are summed in f32. Keys whose
-// valid flag is 0 score -3e38 and never enter a list; a query with fewer
-// than k valid keys gets (-3e38, 0) in its remaining slots. Ties go to the
-// lowest key index, and within a run of equal scores the lower index comes
-// first.
+// Products of bf16 values are exact in f32 and are summed in f32 by the
+// tensor cores (rg_mma.cuh), in their own order. Keys whose valid flag is 0
+// never enter a list; a query with fewer than k valid keys gets (-3e38, 0)
+// in its remaining slots. Ties go to the lowest key index, and within a run
+// of equal scores the lower index comes first.
 //
 // What bounds it on an H100: operations. One 2,048-query chunk against
 // R = 262,144 keys at E = 64 is 2*Q*R*E = 68.7 GFLOP, about 0.07 ms at the
-// 989 TFLOP/s bf16 tensor-core rate, against 34 MB of input (0.01 ms). This
-// first version multiplies with f32 FMAs (67 TFLOP/s peak), so it runs far
-// above that bound; mma.sync / wgmma tiles are later work.
+// 989 TFLOP/s bf16 tensor-core rate, against 34 MB of input (0.01 ms). Past
+// the product, the top-k filter looks at every one of the Q*R scores once,
+// and each block re-reads its key range from L2 for its own queries.
 //
 // Design: on the TPU the R axis was a sequential grid dimension and one
 // running top-k per query lived in VMEM across it. H100 blocks run in no
 // order and carry nothing between them, so R is split across blocks too:
-// block (x, y) scores 64 queries against the y-th range of keys, 64 keys per
-// tile, with a 4x4 register tile per thread fed by 16-byte shared-memory
-// loads. The (64, 64) score tile goes to shared memory; each warp then owns 8
-// queries and keeps each one's sorted list of k (score, index) pairs in
-// shared memory. Only scores above the list's current k-th value are
-// inserted, so after the first tiles almost nothing is. A second, small
-// launch merges the per-range sorted lists of each query (one warp per
-// query, one lane per range) under the same tie rule. The score matrix
-// never exists in device memory.
+// block (x, y) holds 64 * kWG queries resident in shared memory and walks
+// the y-th range of keys in tiles of 128, the next tile's cp.async copies in
+// flight while the current one multiplies. Each warpgroup takes its 64
+// queries' 64 x 128 score tile on the tensor cores (wgmma, rg_mma.cuh) and
+// filters it where it lands, in the accumulator registers: a thread holds
+// 32 scores of each of two queries and the current k-th score of both; one
+// warp vote per four registers, then a ballot per register, pick out the
+// few scores that reach it, and only those go into the query's sorted list
+// of k (score, index) pairs in shared memory. For k <= 16 the four threads
+// that hold a query's scores hand them, one at a time, to one of them,
+// which inserts them by itself, so a warp fills its sixteen lists at once;
+// longer lists are shifted by the whole warp, one score at a time. The
+// list's order is (score descending, index ascending), compared explicitly,
+// since a fragment's keys are not in ascending order; the filter lets equal
+// scores through so that the insertion can order a tie. The score tile never
+// goes to shared memory, and the (Q, R) scores never exist in device
+// memory. A second, small launch merges the per-range sorted lists of each
+// query (one warp per query, one lane per range) under the same order.
+//
+// The inserts are most of the time: each range climbs to its own k-th score
+// from nothing. So the ranges of a query share what they reach: a block
+// publishes each list's k-th score (atomicMax on an order-preserving int
+// key, one int per query) and, a tile later, filters against the largest
+// one published. The k-th score of a subset of the keys is at most the
+// k-th score of all keys, so no key of the true top-k is filtered out, and
+// a key that ties it still passes.
 
 #include <math.h>
 
+#include "rg_mma.cuh"
 #include "rg_tile.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBR = 64;        // keys per tile
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kWarps = kThreads / 32;
-using rg::fma4;
+constexpr int kBR = rgm::kTileN;  // keys per tile
+constexpr int kMergeThreads = 256;
+constexpr int kMergeWarps = kMergeThreads / 32;
 using rg::kFull;
 using rg::kNegInf;
 
-__host__ __device__ inline size_t smem_bytes(int e, int k) {
-  const size_t ld = (size_t)e + 4;
-  return sizeof(float) * (2 * kBQ * ld + kBQ * (kBR + 1)) +
-         (sizeof(float) + sizeof(int)) * (size_t)kBQ * k + sizeof(int) * kBR;
+__host__ __device__ inline size_t smem_bytes(int wg, int e, int k) {
+  return rgm::kAlign + rgm::tile_bytes(64 * wg, e) +
+         2 * rgm::tile_bytes(kBR, e) +
+         (sizeof(float) + sizeof(int)) * (size_t)(64 * wg) * k;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Lists of at most kLaneK entries are filled by one thread each (below);
+// longer ones by the whole warp.
+constexpr int kLaneK = 16;
+
+// Insert (cur, idx) into the sorted list L / LI of length k, ordered by
+// (score descending, index ascending), if it comes before the last entry:
+// one thread walks up from the end, moving each worse entry down a slot.
+// Returns the list's k-th score afterwards.
+__device__ __noinline__ float lane_insert(float* L, int* LI, int k,
+                                          float cur, int idx) {
+  float last = L[k - 1];
+  if (!(cur > last || (cur == last && idx < LI[k - 1]))) return last;
+  int i = k - 1;
+  for (; i > 0; --i) {
+    const float s = L[i - 1];
+    const int si = LI[i - 1];
+    if (s > cur || (s == cur && si < idx)) break;
+    L[i] = s;
+    LI[i] = si;
+    if (i == k - 1) last = s;
+  }
+  L[i] = cur;
+  LI[i] = idx;
+  return i == k - 1 ? cur : last;
+}
+
+// The same insert by a whole warp, for any k <= 128: lane l holds entries
+// l, 32 + l, ...; the position by ballots, then a shift in shared memory.
+// Called with the same arguments by all lanes.
+__device__ __noinline__ float warp_insert(float* L, int* LI, int k,
+                                          float cur, int idx) {
+  const int lane = threadIdx.x & 31;
+  const float last = L[k - 1];
+  if (!(cur > last || (cur == last && idx < LI[k - 1]))) return last;
+  int pos = 0;
+  float hv[4];
+  int hi[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = 32 * u + lane;
+    const bool in = i < k;
+    hv[u] = in ? L[i] : kNegInf;
+    hi[u] = in ? LI[i] : 0;
+    if (32 * u < k)
+      pos += __popc(__ballot_sync(
+          kFull, in && (hv[u] > cur || (hv[u] == cur && hi[u] < idx))));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = 32 * u + lane;
+    if (i >= pos && i + 1 < k) {
+      L[i + 1] = hv[u];
+      LI[i + 1] = hi[u];
+    }
+  }
+  if (lane == 0) {
+    L[pos] = cur;
+    LI[pos] = idx;
+  }
+  __syncwarp();
+  return L[k - 1];
+}
+
+// An int whose order is the order of the floats, for atomicMax.
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float from_order_key(int i) {
+  return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
+}
+
+// kWG warpgroups, 64 queries each, share every key tile.
+template <int kWG>
+__global__ void __launch_bounds__(128 * kWG, 4 / kWG)
 topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ keys,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ part_s, int* __restrict__ part_i,
-                    int n_q, int n_r, int e, int k, int splits,
-                    int rows_per_split) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = e + 4;
-  float* qs = smem;                      // (BQ, E+4)
-  float* ks = qs + kBQ * ld;             // (BR, E+4)
-  float* tile = ks + kBR * ld;           // (BQ, BR+1)
-  float* ls = tile + kBQ * (kBR + 1);    // (BQ, k) running scores
-  int* li = reinterpret_cast<int*>(ls + kBQ * k);  // (BQ, k) indices
-  int* kv = li + kBQ * k;                // (BR,) key is live
+                    int* __restrict__ bound, int n_q, int n_r, int e, int k,
+                    int splits, int rows_per_split) {
+  constexpr int kThreads = 128 * kWG;
+  constexpr int kBQ = 64 * kWG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = rgm::aligned_smem(smem_raw);
+  const size_t q_bytes = rgm::tile_bytes(kBQ, e);
+  const size_t k_bytes = rgm::tile_bytes(kBR, e);
+  const uint32_t qs = rgm::smem_addr(smem);
+  const uint32_t stage[2] = {qs + (uint32_t)q_bytes,
+                             qs + (uint32_t)(q_bytes + k_bytes)};
+  float* ls = reinterpret_cast<float*>(smem + q_bytes + 2 * k_bytes);
+  int* li = reinterpret_cast<int*>(ls + kBQ * k);  // (BQ, k) lists
 
   const int q0 = blockIdx.x * kBQ;
   const int split = blockIdx.y;
   const long long r_begin = (long long)split * rows_per_split;
   const long long r_end = min((long long)n_r, r_begin + rows_per_split);
+  const int n_tiles = (int)((r_end - r_begin + kBR - 1) / kBR);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int warp = tid / 32;  // query rows 16 * warp .. 16 * warp + 15
   const int lane = tid & 31;
-  const int ty = tid / 16;  // queries 4*ty .. 4*ty+3
-  const int tx = tid % 16;  // keys tx, tx+16, tx+32, tx+48
+  const int wg = warp / 4;
 
-  rg::load_rows<kThreads>(q, qs, q0, kBQ, n_q, e);
+  rgm::load_tile<kThreads>(q, qs, q0, kBQ, n_q, e);
+  rgm::load_tile<kThreads>(keys, stage[0], r_begin, kBR, r_end, e);
+  rgm::cp_async_commit();
   for (int t = tid; t < kBQ * k; t += kThreads) {
     ls[t] = kNegInf;
     li[t] = 0;
   }
-  __syncthreads();
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += kBR) {
-    rg::load_rows<kThreads>(keys, ks, r0, kBR, r_end, e);
-    for (int t = tid; t < kBR; t += kThreads) {
-      const long long gr = r0 + t;
-      kv[t] = gr < r_end && (valid == nullptr || valid[gr] != 0);
+  // this thread's two queries (accumulator rows h = 0, 1): the larger of
+  // the list's k-th score and the shared bound (shr), against which the
+  // scores are filtered; a query past Q never passes the filter
+  const int row0 = 16 * warp + (lane >> 2);
+  float thr[2], shr[2] = {kNegInf, kNegInf};
+  int next_bound[2];
+  bool live_q[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    live_q[h] = q0 + row0 + 8 * h < n_q;
+    thr[h] = live_q[h] ? kNegInf : INFINITY;
+    next_bound[h] = order_key(kNegInf);
+  }
+  // the live flags of the next tile's keys, 4 per lane
+  auto flags = [&](long long r0, bool (&f)[4]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long gr = r0 + 32 * u + lane;
+      f[u] = gr < r_end && (valid == nullptr || valid[gr] != 0);
     }
-    __syncthreads();
+  };
+  bool nf[4];
+  flags(r_begin, nf);
 
-    float acc[4][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    const long long r0 = r_begin + (long long)t * kBR;
+    // tile t has landed, and every warp is done with tile t - 1, whose
+    // stage takes tile t + 1 while tile t multiplies
+    rgm::cp_async_wait<0>();
+    __syncthreads();
+    // the bound read a tile ago, and the read for the next tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int c = 0; c < e; c += 4) {
-      float4 a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * ld + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ld + c);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) fma4(acc[i][j], a[i], b[j]);
+    for (int h = 0; h < 2; ++h) {
+      shr[h] = fmaxf(shr[h], from_order_key(next_bound[h]));
+      thr[h] = fmaxf(thr[h], shr[h]);
+      if (live_q[h]) next_bound[h] = __ldcg(bound + q0 + row0 + 8 * h);
     }
+    if (t + 1 < n_tiles) {
+      rgm::load_tile<kThreads>(keys, stage[(t + 1) & 1], r0 + kBR, kBR,
+                               r_end, e);
+      rgm::cp_async_commit();
+    }
+    // bit b of word u: key r0 + 32u + b is live; shifted to this thread's
+    // first column 2 * (lane % 4)
+    unsigned word[4], all = kFull, some = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        tile[(4 * ty + i) * (kBR + 1) + tx + 16 * j] =
-            kv[tx + 16 * j] ? acc[i][j] : kNegInf;
-    __syncthreads();
+    for (int u = 0; u < 4; ++u) {
+      const unsigned w = __ballot_sync(kFull, nf[u]);
+      all &= w;
+      some |= w;
+      word[u] = w >> (2 * (lane & 3));
+    }
+    const bool all_live = all == kFull;
+    const bool any_live = some != 0;
+    if (t + 1 < n_tiles) flags(r0 + kBR, nf);
 
-    // Insert this tile's winners, in ascending key order, into the sorted
-    // lists of the warp's queries. A new score goes after every equal one,
-    // so among ties the lower (earlier) index stays first.
-    for (int qq = 0; qq < kBQ / kWarps; ++qq) {
-      const int ql = warp * (kBQ / kWarps) + qq;
-      if (q0 + ql >= n_q) break;
-      float* L = ls + ql * k;
-      int* LI = li + ql * k;
-      float thr = L[k - 1];
+    float acc[rgm::kAcc];
+    rgm::mma_tile(acc, qs, kBQ, 64 * wg, stage[t & 1], e);
+
+    // keys past the range or not valid score -inf and never pass; a tile
+    // with no live key is skipped
+    if (!all_live) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float sc = tile[ql * (kBR + 1) + half * 32 + lane];
-        unsigned m = __ballot_sync(kFull, sc > thr);
-        while (m) {
-          const int j = __ffs(m) - 1;
-          m &= m - 1;
-          const float cur = __shfl_sync(kFull, sc, j);
-          if (!(cur > thr)) continue;  // the k-th value has risen past it
-          const int gidx = (int)(r0 + half * 32 + j);
-          int pos = 0;
-          float hv[4];
-          int hi[4];
+      for (int v = 0; v < rgm::kAcc; ++v) {
+        const int j = v >> 2;  // key columns 8j .. 8j+7
+        if (!((word[j >> 2] >> ((8 * j) % 32 + (v & 1))) & 1u))
+          acc[v] = -INFINITY;
+      }
+    }
+    if (any_live && q0 + 16 * warp < n_q) {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = 32 * u + lane;
-            const bool in = i < k;
-            hv[u] = in ? L[i] : kNegInf;
-            hi[u] = in ? LI[i] : 0;
-            pos += __popc(__ballot_sync(kFull, in && hv[u] >= cur));
-          }
-          __syncwarp();
+      for (int j = 0; j < rgm::kAcc / 4; ++j) {
+        // keys 8j + 2 * (lane % 4) + x of query rows row0 + 8h sit in
+        // acc[4j + 2h + x]: one vote for the four, then one per score
+        if (!__any_sync(kFull, acc[4 * j] >= thr[0] ||
+                                   acc[4 * j + 1] >= thr[0] ||
+                                   acc[4 * j + 2] >= thr[1] ||
+                                   acc[4 * j + 3] >= thr[1]))
+          continue;
+#pragma unroll 1
+        for (int x = 0; x < 2; ++x) {
+          const float s0 = x ? acc[4 * j + 1] : acc[4 * j];
+          const float s1 = x ? acc[4 * j + 3] : acc[4 * j + 2];
+          const int key = (int)r0 + 8 * j + x;  // + 2 * (lane % 4)
+          unsigned m0 = __ballot_sync(kFull, s0 >= thr[0]);
+          unsigned m1 = __ballot_sync(kFull, s1 >= thr[1]);
+          if (k <= kLaneK) {
+            // each quad hands its lowest pending score of each of its two
+            // queries to the lane that owns that query (lanes 4 * (lane /
+            // 4) + h): the warp fills its sixteen lists at once
+            const int base = lane & ~3;
+            const int own = lane & 3;
+            while (m0 | m1) {
+              const unsigned p0 = (m0 >> base) & 0xFu;
+              const unsigned p1 = (m1 >> base) & 0xFu;
+              const int src0 = p0 ? base + __ffs(p0) - 1 : lane;
+              const int src1 = p1 ? base + __ffs(p1) - 1 : lane;
+              const float c0 = __shfl_sync(kFull, s0, src0);
+              const float c1 = __shfl_sync(kFull, s1, src1);
+              float kth = own == 0 ? thr[0] : thr[1];
+              if (own < 2 && (own ? p1 : p0)) {
+                const int ql = row0 + 8 * own;
+                kth = lane_insert(ls + ql * k, li + ql * k, k,
+                                  own ? c1 : c0,
+                                  key + 2 * ((own ? src1 : src0) & 3));
+                if (kth > kNegInf) atomicMax(bound + q0 + ql, order_key(kth));
+                kth = fmaxf(kth, own ? shr[1] : shr[0]);
+              }
+              m0 &= ~__ballot_sync(kFull, p0 && lane == src0);
+              m1 &= ~__ballot_sync(kFull, p1 && lane == src1);
+              thr[0] = __shfl_sync(kFull, kth, base);
+              thr[1] = __shfl_sync(kFull, kth, base + 1);
+            }
+          } else {
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = 32 * u + lane;
-            if (i >= pos && i + 1 < k) {
-              L[i + 1] = hv[u];
-              LI[i + 1] = hi[u];
+            for (int h = 0; h < 2; ++h) {
+              unsigned m = h ? m1 : m0;
+              const float s = h ? s1 : s0;
+              while (m) {
+                const int src = __ffs(m) - 1;
+                m &= m - 1;
+                const float cur = __shfl_sync(kFull, s, src);
+                const int ql = 16 * warp + (src >> 2) + 8 * h;
+                const float kth = warp_insert(ls + ql * k, li + ql * k, k,
+                                              cur, key + 2 * (src & 3));
+                if (lane == src && kth > kNegInf)
+                  atomicMax(bound + q0 + ql, order_key(kth));
+                if ((lane >> 2) == (src >> 2)) thr[h] = fmaxf(kth, shr[h]);
+              }
             }
           }
-          if (lane == 0) {
-            L[pos] = cur;
-            LI[pos] = gidx;
-          }
-          __syncwarp();
-          thr = L[k - 1];
         }
       }
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   for (int t = tid; t < kBQ * k; t += kThreads) {
     const int ql = t / k;
@@ -179,11 +326,11 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
 
 // One warp per query: lane l holds the head of range l's sorted list; k
 // rounds of a warp arg-max under (score descending, index ascending).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMergeThreads)
 topk_merge_kernel(const float* __restrict__ part_s,
                   const int* __restrict__ part_i, float* __restrict__ out_s,
                   int* __restrict__ out_i, int n_q, int splits, int k) {
-  const int gq = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int gq = blockIdx.x * kMergeWarps + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (gq >= n_q) return;
   const float* ps = part_s + (long long)gq * splits * k;
@@ -225,36 +372,61 @@ topk_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
+template <int kWG>
+cudaError_t launch_partial(const dim3& grid, size_t smem, cudaStream_t s,
+                           const __nv_bfloat16* q, const __nv_bfloat16* keys,
+                           const uint8_t* valid, float* part_s, int* part_i,
+                           int* bound, int n_q, int n_r, int e, int k,
+                           int splits, int rows_per_split) {
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_partial_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  topk_partial_kernel<kWG><<<grid, 128 * kWG, smem, s>>>(
+      q, keys, valid, part_s, part_i, bound, n_q, n_r, e, k, splits,
+      rows_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q (Q, E) and keys (R, E) bf16, row-major, E % 8 == 0, E <= 256; valid
-// (R,) uint8 or null; 1 <= k <= 128; 1 <= splits <= 32 ranges of
-// rows_per_split keys (a multiple of 64). Scratch part_s / part_i hold
-// (Q, splits, k); out_s / out_i are (Q, k).
+// q (Q, E) and keys (R, E) bf16, row-major, 16-byte aligned, E % 8 == 0,
+// E <= 256; valid (R,) uint8 or null; 1 <= k <= 128; block_q 64 or 128
+// queries per block; 1 <= splits <= 32 ranges of rows_per_split keys (a
+// multiple of 128). Scratch part_s / part_i hold (Q, splits, k), bound (Q,)
+// int32; out_s / out_i are (Q, k).
 int rg_fused_cosine_topk(const void* q, const void* keys, const void* valid,
-                         void* part_s, void* part_i, void* out_s, void* out_i,
-                         int n_q, int n_r, int e, int k, int splits,
-                         int rows_per_split, void* stream) {
+                         void* part_s, void* part_i, void* bound,
+                         void* out_s, void* out_i, int n_q, int n_r, int e,
+                         int k, int block_q, int splits, int rows_per_split,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_q == 0) return (int)cudaGetLastError();
-  const size_t smem = smem_bytes(e, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if ((block_q != 64 && block_q != 128) || splits < 1 || splits > 32 ||
+      rows_per_split % kBR != 0)
+    return (int)cudaErrorInvalidValue;
+  const int wg = block_q / 64;
+  const dim3 grid((n_q + block_q - 1) / block_q, splits);
+  const auto* qh = static_cast<const __nv_bfloat16*>(q);
+  const auto* kh = static_cast<const __nv_bfloat16*>(keys);
+  const auto* vb = static_cast<const uint8_t*>(valid);
+  auto* ps = static_cast<float*>(part_s);
+  auto* pi = static_cast<int*>(part_i);
+  auto* bd = static_cast<int*>(bound);
+  // bytes 0x80: the order key of -3.4e38, below every score
+  cudaError_t err = cudaMemsetAsync(bd, 0x80, sizeof(int) * (size_t)n_q, s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_q + kBQ - 1) / kBQ, splits);
-  topk_partial_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(keys),
-      static_cast<const uint8_t*>(valid), static_cast<float*>(part_s),
-      static_cast<int*>(part_i), n_q, n_r, e, k, splits, rows_per_split);
-  err = cudaGetLastError();
+  const size_t smem = smem_bytes(wg, e, k);
+  err = wg == 2 ? launch_partial<2>(grid, smem, s, qh, kh, vb, ps, pi, bd,
+                                    n_q, n_r, e, k, splits, rows_per_split)
+                : launch_partial<1>(grid, smem, s, qh, kh, vb, ps, pi, bd,
+                                    n_q, n_r, e, k, splits, rows_per_split);
   if (err != cudaSuccess) return (int)err;
-  topk_merge_kernel<<<(n_q + kWarps - 1) / kWarps, kThreads, 0, s>>>(
-      static_cast<const float*>(part_s), static_cast<const int*>(part_i),
-      static_cast<float*>(out_s), static_cast<int*>(out_i), n_q, splits, k);
+  topk_merge_kernel<<<(n_q + kMergeWarps - 1) / kMergeWarps, kMergeThreads, 0,
+                      s>>>(ps, pi, static_cast<float*>(out_s),
+                           static_cast<int*>(out_i), n_q, splits, k);
   return (int)cudaGetLastError();
 }
 

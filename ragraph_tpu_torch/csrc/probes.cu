@@ -21,12 +21,15 @@
 // What bounds each on an H100, at the scripts' shapes:
 //   J  operations: 2*R*Q*E = 137 GFLOP at R = 262,144, Q = 2,048, E = 128
 //      (0.14 ms at the bf16 tensor-core rate) against 67.6 MB of input and a
-//      16.8 MB result. It is kernel D's 64 x 64 f32-FMA tile (bucket_topk.cu)
-//      with the same dot order (rg_tile.cuh), so it runs as far above that
-//      bound as D does, and J[g, q] is bitwise kernel F's score of key
-//      128*g + pick_row. The written row is a runtime argument: every thread
-//      selects among its four keys by it after the products, so no product can
-//      be dropped at compile time and the probe times the whole tile.
+//      16.8 MB result. It runs kernel C's tensor-core score tile (rg_mma.cuh)
+//      with the keys on the 64-row side: a block holds 128 queries resident
+//      and walks a range of 128-key groups, one warpgroup per half group,
+//      the next group's cp.async copies in flight while the current one
+//      multiplies. The written row is a runtime argument: the threads that
+//      hold it write it straight from the accumulators, and every product of
+//      the group has been taken by then, so the probe times the whole tile.
+//      Its sums are the tensor cores' order, within a few f32 roundings of
+//      kernel F's score of key 128*g + pick_row.
 //   K  bytes: 8.4 MB of indices, 16.8 MB of weights, a 33.5 MB table (gathered
 //      2^21 times, from L2) and a 67 MB result at N = 2^18, D = 64, 2^21
 //      edges. Kernel A's walk (csr_segment.cu): one warp per receiver row,
@@ -37,85 +40,69 @@
 //      a 33.5 MB table and the columns read. One block per table block holds
 //      its 128 rows in shared memory and copies 16 bytes a thread.
 
+#include "rg_mma.cuh"
 #include "rg_tile.cuh"
 
 namespace {
 
-using rg::fma4;
 using rg::kFull;
 
 constexpr int kLane = 128;     // rows per group (J) and per table block (L)
-constexpr int kBQ = 64;        // J: queries per block
-constexpr int kBR = 64;        // J: keys per tile (half a group)
-constexpr int kThreads = 256;  // J, L
-constexpr int kGroupsPerBlock = 8;  // J: groups one block walks over
+constexpr int kJThreads = 2 * 128;  // J: a warpgroup per 64 keys of a group
+constexpr int kGroupsPerBlock = 16;  // J: groups one block walks over
+constexpr int kThreads = 256;  // L
 constexpr int kWarps = 8;      // K: receiver rows per block
 
 // ---- J ---------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kJThreads)
 mm_probe_kernel(const __nv_bfloat16* __restrict__ keys,
                 const __nv_bfloat16* __restrict__ q, float* __restrict__ out,
                 int n_r, int n_q, int e, int n_groups, int pick_row) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = e + 4;
-  float* qs = smem;           // (BQ, E+4)
-  float* ks = qs + kBQ * ld;  // (BR, E+4)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = rgm::aligned_smem(smem_raw);
+  const size_t tile = rgm::tile_bytes(kLane, e);  // 128 rows, either side
+  const uint32_t qs = rgm::smem_addr(smem);
+  const uint32_t stage[2] = {qs + (uint32_t)tile, qs + (uint32_t)(2 * tile)};
 
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * rgm::kTileN;
   const int g_begin = blockIdx.y * kGroupsPerBlock;
   const int g_end = min(n_groups, g_begin + kGroupsPerBlock);
   const int tid = threadIdx.x;
-  const int ty = tid / 16;  // queries 4*ty .. 4*ty+3
-  const int tx = tid % 16;  // keys tx, tx+16, tx+32, tx+48
-  // where the written row sits in the tiles: half, thread column, key of four
-  const int p_half = pick_row / kBR;
-  const int p_tx = (pick_row % kBR) % 16;
-  const int p_j = (pick_row % kBR) / 16;
+  const int warp = tid / 32;
+  const int lane = tid & 31;
+  // the thread that holds the written row: warpgroup, warp, lane / 4, and
+  // which of its two accumulator rows
+  const bool writer = warp == pick_row / 16 && (lane >> 2) == pick_row % 8;
+  const bool upper = (pick_row % 16) >= 8;
 
-  rg::load_rows<kThreads>(q, qs, q0, kBQ, n_q, e);
-
+  rgm::load_tile<kJThreads>(q, qs, q0, rgm::kTileN, n_q, e);
+  rgm::load_tile<kJThreads>(keys, stage[0], (long long)g_begin * kLane, kLane,
+                            n_r, e);
+  rgm::cp_async_commit();
   for (int g = g_begin; g < g_end; ++g) {
-    for (int half = 0; half < kLane / kBR; ++half) {
-      const long long r0 = (long long)g * kLane + half * kBR;
-      __syncthreads();  // the previous tile has been read (and qs written)
-      rg::load_rows<kThreads>(keys, ks, r0, kBR, n_r, e);
-      __syncthreads();
+    const int t = g - g_begin;
+    // group g has landed, and both warpgroups are done with group g - 1,
+    // whose stage takes group g + 1 while group g multiplies
+    rgm::cp_async_wait<0>();
+    __syncthreads();
+    if (g + 1 < g_end) {
+      rgm::load_tile<kJThreads>(keys, stage[(t + 1) & 1],
+                                (long long)(g + 1) * kLane, kLane, n_r, e);
+      rgm::cp_async_commit();
+    }
 
-      float acc[4][4];
+    float acc[rgm::kAcc];
+    rgm::mma_tile(acc, stage[t & 1], kLane, rgm::kTileM * (warp / 4), qs, e);
+    if (writer) {
+      float* row = out + (long long)g * n_q;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int c = 0; c < e; c += 4) {
-        float4 a[4], bb[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * ld + c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          bb[j] =
-              *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * ld + c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) fma4(acc[i][j], a[i], bb[j]);
-      }
-      // a runtime choice among the thread's four keys: all sixteen sums stay
-      // live up to here in every thread
-      float sel[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sel[i] = acc[i][0];
-#pragma unroll
-        for (int j = 1; j < 4; ++j) sel[i] = p_j == j ? acc[i][j] : sel[i];
-      }
-      if (half == p_half && tx == p_tx) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gq = q0 + 4 * ty + i;
-          if (gq < n_q) out[(long long)g * n_q + gq] = sel[i];
-        }
+      for (int j = 0; j < rgm::kAcc / 4; ++j) {
+        const int gq = q0 + 8 * j + 2 * (lane & 3);
+        const float a = upper ? acc[4 * j + 2] : acc[4 * j];
+        const float b = upper ? acc[4 * j + 3] : acc[4 * j + 1];
+        if (gq < n_q) row[gq] = a;
+        if (gq + 1 < n_q) row[gq + 1] = b;
       }
     }
   }
@@ -229,12 +216,13 @@ int rg_mm_probe(const void* keys, const void* q, void* out, int n_r, int n_q,
                 int e, int pick_row, void* stream) {
   if (n_r == 0 || n_q == 0) return (int)cudaGetLastError();
   const int n_groups = (n_r + kLane - 1) / kLane;
-  const size_t smem = sizeof(float) * (kBQ + kBR) * ((size_t)e + 4);
+  const size_t smem = rgm::kAlign + 3 * rgm::tile_bytes(kLane, e);
   cudaError_t err = allow_smem((const void*)mm_probe_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_q + kBQ - 1) / kBQ,
+  const dim3 grid((n_q + rgm::kTileN - 1) / rgm::kTileN,
                   (n_groups + kGroupsPerBlock - 1) / kGroupsPerBlock);
-  mm_probe_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mm_probe_kernel<<<grid, kJThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(keys),
       static_cast<const __nv_bfloat16*>(q), static_cast<float*>(out), n_r,
       n_q, e, n_groups, pick_row);

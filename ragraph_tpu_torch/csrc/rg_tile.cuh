@@ -1,12 +1,15 @@
-// Shared pieces of the retrieval kernels (fused_retrieval.cu, bucket_topk.cu):
-// the tile loader and the one dot-product order all of them use.
+// Shared pieces of the bucket kernels D-G (bucket_topk.cu): the f32 tile
+// loader and the one dot-product order D and F use; and the constants of
+// every retrieval kernel (C and J, on the tensor cores, use rg_mma.cuh).
 //
-// Every score in these kernels is sum_c q[c] * key[c] over bf16 inputs.
-// A product of two bf16 values is exact in f32, so a score depends only on
-// the order of the f32 additions. All kernels add in ascending c into one
-// accumulator that starts at 0 (fma4 below, called for c = 0, 4, 8, ...).
-// Kernel D's bucket maxima are therefore bitwise the scores kernel F
-// returns, and both are bitwise kernel C's scores.
+// Every score in D and F is sum_c q[c] * key[c] over bf16 inputs. A product
+// of two bf16 values is exact in f32, so a score depends only on the order
+// of the f32 additions. D and F add in ascending c into one accumulator
+// that starts at 0 (fma4 below, called for c = 0, 4, 8, ...), as the plain
+// versions do (_fma_chain in ops/bucket_topk.py). Kernel D's bucket maxima
+// are therefore bitwise the scores kernel F returns. Kernels C and J add
+// the same products in the tensor cores' order: within a few f32 roundings
+// of these scores, not bitwise.
 
 #pragma once
 

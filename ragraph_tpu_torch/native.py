@@ -43,10 +43,10 @@ _SIGNATURES = {
     "rg_csr_gather_scale_segsum": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
     # msgs, indptr, out, n_rows, d, stream
     "rg_csr_segment_sum": [_P, _P, _P, _L, _I, _P],
-    # q, keys, valid, part_s, part_i, out_s, out_i, Q, R, E, k, splits,
-    # rows_per_split, stream
-    "rg_fused_cosine_topk": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _P],
+    # q, keys, valid, part_s, part_i, bound, out_s, out_i, Q, R, E, k,
+    # queries per block, splits, rows_per_split, stream
+    "rg_fused_cosine_topk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _P],
     # keys, q, valid, out, R, Q, E, stream
     "rg_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, out_v, out_i, R, Q, k, row splits, stream

@@ -29,7 +29,9 @@ candidate's key index follows from its bucket id and lane.
 The scores are those of ``topk(q.bf16 @ keys.bf16.T)`` with f32 sums: phase 2
 repeats phase 1's sums term by term (``csrc/rg_tile.cuh``), and the plain
 versions below add in the same order (:func:`_fma_chain`), so a wrapper
-gives the same bits on the CPU and on the card.
+gives the same bits on the CPU and on the card. Kernel C
+(``fused_retrieval``) sums on the tensor cores in another order: the two
+exact tiers agree to a few f32 roundings, not bit for bit.
 
 Each kernel has a plain PyTorch version here (``*_plain``). A wrapper runs
 it only for tensors on the CPU; for CUDA tensors it launches the kernel

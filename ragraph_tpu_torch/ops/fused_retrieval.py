@@ -2,9 +2,11 @@
 ``ragraph_tpu/ops/pallas_retrieval.py``).
 
 :func:`fused_cosine_topk` runs kernel C (``csrc/fused_retrieval.cu``) on
-CUDA tensors: bf16 scores with f32 accumulation, a running per-query top-k,
-and no ``(Q, R)`` score matrix in device memory. On CPU tensors it runs
-:func:`fused_cosine_topk_plain`.
+CUDA tensors: bf16 scores summed in f32 on the tensor cores, a running
+per-query top-k filtered in registers, and no ``(Q, R)`` score matrix in
+device memory. On CPU tensors it runs :func:`fused_cosine_topk_plain`. The
+two add the same exact bf16 products in different orders, so their scores
+agree to a few f32 roundings, not bit for bit.
 
 Contract (both versions): scores ``(Q, k)`` f32 sorted descending and
 indices ``(Q, k)`` int32; rows with ``valid_mask`` False never surface;
@@ -16,8 +18,6 @@ scores in descending index order.)
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ragraph_tpu_torch import native
@@ -25,8 +25,11 @@ from ragraph_tpu_torch import native
 NEG_INF = -3.0e38
 MAX_K = 128   # the running lists live in shared memory
 MAX_E = 256
-_BQ = 64      # queries per block (csrc/fused_retrieval.cu kBQ)
-_BR = 64      # keys per tile (kBR)
+_BR = 128     # keys per tile (csrc/rg_mma.cuh kTileN)
+_MAX_SPLITS = 32          # one per lane of the merge launch's warp
+_SMEM_BLOCK = 232_448     # shared memory one H100 block may ask for
+_SMEM_SM = 233_472        # shared memory of one H100 SM
+_SMEM_RESERVED = 1024     # taken by the runtime for each resident block
 
 
 def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
@@ -48,15 +51,36 @@ def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
     return s, i.to(torch.int32)
 
 
-def _splits(n_q: int, n_r: int, device: torch.device) -> tuple[int, int]:
-    """Split R across blocks so that a query chunk fills the card: about
-    four resident blocks per SM, at most 32 ranges (one per merge lane)."""
+def _smem_bytes(bq: int, e: int, k: int) -> int:
+    """Shared memory of one block of kernel C (``smem_bytes`` in
+    ``csrc/fused_retrieval.cu``): the alignment slack, the resident query
+    tile and two key tiles in 64-column swizzle atoms of the width padded to
+    16, and the ``(bq, k)`` lists."""
+    atoms = -(-(-(-e // 16) * 16) // 64)
+    return 1024 + (bq + 2 * _BR) * 128 * atoms + 8 * bq * k
+
+
+def _splits(n_q: int, n_r: int, e: int, k: int,
+            sms: int) -> tuple[int, int, int]:
+    """Kernel C's tile plan on a card with ``sms`` SMs: ``(queries per
+    block, ranges, keys per range)``.
+
+    A block of 128 queries (two warpgroups) shares each key tile where that
+    fits shared memory and still gives every SM a block; else 64. R is cut
+    into at most 32 ranges of whole 128-key tiles, as many as the SMs hold
+    resident beside the query blocks (two blocks of 128 queries or four of
+    64 per SM, fewer where shared memory runs out), so the launch is one
+    wave."""
     n_tiles = -(-n_r // _BR)
-    q_blocks = -(-n_q // _BQ)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(32, n_tiles, math.ceil(4 * sms / q_blocks)))
+    max_splits = min(_MAX_SPLITS, n_tiles)
+    bq = 128 if (_smem_bytes(128, e, k) <= _SMEM_BLOCK
+                 and -(-n_q // 128) * max_splits >= sms) else 64
+    q_blocks = -(-n_q // bq)
+    per_sm = min(256 // bq,
+                 _SMEM_SM // (_smem_bytes(bq, e, k) + _SMEM_RESERVED))
+    splits = max(1, min(max_splits, per_sm * sms // q_blocks))
     rows_per_split = -(-n_tiles // splits) * _BR
-    return -(-n_r // rows_per_split), rows_per_split
+    return bq, -(-n_r // rows_per_split), rows_per_split
 
 
 def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
@@ -96,17 +120,19 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
                 torch.zeros((n_q, k), dtype=torch.int32, device=q.device))
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    splits, rows_per_split = _splits(n_q, n_r, q.device)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    bq, splits, rows_per_split = _splits(n_q, n_r, e, k, sms)
     part_s = torch.empty((n_q, splits, k), dtype=torch.float32,
                          device=q.device)
     part_i = torch.empty((n_q, splits, k), dtype=torch.int32,
                          device=q.device)
+    bound = torch.empty(n_q, dtype=torch.int32, device=q.device)
     rc = native.lib().rg_fused_cosine_topk(
         q.data_ptr(), kk.data_ptr(),
         valid.data_ptr() if valid is not None else None,
-        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), n_q, n_r, e, k, splits, rows_per_split,
-        native.stream_ptr(q))
+        part_s.data_ptr(), part_i.data_ptr(), bound.data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), n_q, n_r, e, k, bq, splits,
+        rows_per_split, native.stream_ptr(q))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out_s, out_i

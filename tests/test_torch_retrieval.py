@@ -91,6 +91,77 @@ def test_fused_cosine_topk_rejects_large_k():
         tret.fused_cosine_topk(x, x, tret.MAX_K + 1)
 
 
+@pytest.mark.parametrize("seed,k,n_valid", [
+    (0, 1, None), (1, 5, None), (2, 17, None), (3, 40, 30), (4, 128, 90)])
+def test_fused_cosine_topk_plain_ties_in_shuffled_order(seed, k, n_valid):
+    """Duplicate keys scattered in shuffled order: equal scores come out in
+    ascending index order, the members are the lowest indices, and slots
+    past the valid rows hold (-3e38, 0). The order is (score descending,
+    index ascending) of the plain version's own scores."""
+    rng = np.random.default_rng(seed)
+    base = _unit(rng, 6, 16)
+    keys = base[rng.integers(0, 6, 150)]          # 150 keys, 6 distinct
+    q = _unit(rng, 4, 16)
+    valid = None
+    if n_valid is not None:
+        valid = np.zeros(150, bool)
+        valid[rng.permutation(150)[:n_valid]] = True
+    s, i = tret.fused_cosine_topk(
+        torch.from_numpy(q), torch.from_numpy(keys), k,
+        valid_mask=None if valid is None else torch.from_numpy(valid))
+    s, i = s.numpy(), i.numpy()
+    scores = (torch.from_numpy(q).bfloat16().float()
+              @ torch.from_numpy(keys).bfloat16().float().T).numpy()
+    n_live = 150 if valid is None else n_valid
+    for r in range(4):
+        cand = np.arange(150) if valid is None else np.nonzero(valid)[0]
+        order = cand[np.lexsort((cand, -scores[r, cand]))][:k]
+        m = min(k, n_live)
+        np.testing.assert_array_equal(i[r, :m], order)
+        np.testing.assert_array_equal(s[r, :m], scores[r, order])
+        assert np.all(s[r, m:] == np.float32(tret.NEG_INF))
+        assert np.all(i[r, m:] == 0)
+        tied = s[r, 1:m] == s[r, :m - 1]
+        assert np.all(i[r, 1:m][tied] > i[r, :m - 1][tied])
+    # each key is repeated, so some tie runs are longer than one
+    assert (s[:, 1:min(k, n_live)] == s[:, :min(k, n_live) - 1]).any() \
+        or k < 3
+
+
+SMS = 132   # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("n_r", [1, 63, 64, 65, 65_536, 262_144])
+@pytest.mark.parametrize("n_q", [1, 384, 2048])
+def test_fused_tile_plan_covers_the_keys(n_q, n_r):
+    """Kernel C's tile plan: at most 32 ranges, each a whole number of
+    128-key tiles and none empty, that together cover R; a block that fits
+    shared memory."""
+    for e, k in ((64, 10), (256, 4), (8, 1), (136, 50), (256, 128)):
+        bq, splits, rows = tret._splits(n_q, n_r, e, k, SMS)
+        assert bq in (64, 128)
+        assert rows > 0 and rows % tret._BR == 0
+        assert 1 <= splits <= 32
+        assert (splits - 1) * rows < n_r <= splits * rows
+        assert tret._smem_bytes(bq, e, k) <= tret._SMEM_BLOCK
+
+
+@pytest.mark.parametrize("sms", [SMS, 114])
+@pytest.mark.parametrize("n_q,n_r,e,k", [
+    (2048, 262_144, 64, 10),    # an edge refresh chunk
+    (384, 65_536, 256, 4),      # a node retrieve
+])
+def test_fused_tile_plan_fills_the_card_in_one_wave(sms, n_q, n_r, e, k):
+    """At the paths' shapes the blocks reach every SM and all fit resident
+    at once (two of 128 queries or four of 64 per SM, fewer where shared
+    memory runs out)."""
+    bq, splits, _ = tret._splits(n_q, n_r, e, k, sms)
+    blocks = -(-n_q // bq) * splits
+    per_sm = min(256 // bq, tret._SMEM_SM
+                 // (tret._smem_bytes(bq, e, k) + tret._SMEM_RESERVED))
+    assert sms <= blocks <= per_sm * sms
+
+
 @pytest.mark.parametrize("normalized", [True, False])
 def test_cosine_topk_exact_matches_jax(normalized):
     rng = np.random.default_rng(3)
