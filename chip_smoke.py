@@ -7,12 +7,14 @@ probe and node paths on one GPU.
 Phases (any failure exits non-zero):
 1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc, and count
    the tensor-core instructions (``HGMMA``/``HMMA``) in the machine code of
-   kernels C and J (``cuobjdump -sass``);
+   kernels C, D, F and J (``cuobjdump -sass``);
 2. hold each of the twelve kernels against its plain PyTorch version on the
-   card, at its path's shapes and at ragged small shapes; the three probe
-   kernels also against their neighbours (J within ``TOL_SCORE`` of kernel
-   F's scores and not above kernel D's maxima by more, K against kernel A,
-   L exact);
+   card, at its path's shapes and at ragged small shapes; kernel D's maxima
+   against the maxima of kernel F's scores, bit for bit; the bucket family
+   against a dense reference, its top-1 bit for bit kernel D's largest
+   maximum; the three probe kernels also against their neighbours (J
+   within ``TOL_SCORE`` of kernel F's scores and not above kernel D's
+   maxima by more, K against kernel A, L exact);
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
@@ -81,12 +83,15 @@ F32_FLOP_PER_MS = 67e9      # f32 outside the tensor cores
 TOL_SEGSUM = (1e-5, 1e-6)   # f32 sums of the same terms in another order
 TOL_E2E = (1e-5, 1e-6)      # small-graph embeddings, card vs CPU, f32
 # Exact bf16 products, f32 sums of <= 256 terms in two different orders:
-# kernels C and J (tensor cores) against their plain versions, J against
-# kernel F, the exact tier against C. Each check prints its largest error.
+# kernels C, D, F and J (the tensor cores' order, csrc/rg_mma.cuh) against
+# their plain versions (sequential sums), J against kernel F, the bucket
+# family against its dense reference and the exact tier against C. Each
+# check prints its largest error.
 TOL_SCORE = 1e-5
-# Kernels D-G against their plain versions: no difference at all. D and F
-# add the same exact bf16 products in one order (csrc/rg_tile.cuh), the
-# plain versions add them in that order too, and E and G only select.
+# No difference at all: kernels E and G against their plain versions (they
+# only select), and kernel D's maxima against kernel F's scores and the
+# bucket family's top-1 (D and F take the same tensor-core sums for a
+# query and a key, so the exact tier's bucket choice holds).
 TOL_BUCKET = 0.0
 # Kernel H against its plain version (torch.cumsum in f32): two f32 sums of
 # up to 2^21 terms in different orders, so the error follows the size of the
@@ -379,7 +384,8 @@ def hi_kernel_checks(rng, dev, graph):
 
 
 def check_same(name, got, ref):
-    """Tolerance TOL_BUCKET: every value equal."""
+    """Tolerance TOL_BUCKET: every value equal (``ref`` a plain version, or
+    the other kernel of a pair that must agree bit for bit)."""
     import torch
     if got.shape != ref.shape:
         fail(f"{name}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
@@ -392,13 +398,14 @@ def check_same(name, got, ref):
     print(f"  {name}: max_abs_err={err:.3e} tol={TOL_BUCKET:.0e} "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
-        fail(f"{name} disagrees with its plain version")
+        fail(f"{name} disagrees")
     return float(err)
 
 
 def dense_topk(q, keys, k, valid=None):
-    """The bucket path's reference at small sizes: every score by the
-    kernels' dot order, a stable sort, (-inf, 0) in exhausted slots."""
+    """The bucket path's reference at small sizes: every score by the plain
+    versions' sequential sum, a stable sort, (-inf, 0) in exhausted
+    slots."""
     import torch
 
     from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
@@ -412,11 +419,16 @@ def dense_topk(q, keys, k, valid=None):
 
 
 def check_bucket_family(name, q, keys, k, valid=None, p_max=P_MAX):
-    """``bucketed_exact_topk`` against the dense reference: scores equal,
-    and an index that differs points at a key with the same score."""
+    """``bucketed_exact_topk`` against the dense reference: scores within
+    TOL_SCORE, and an index that differs points at a valid key that scores
+    within TOL_SCORE of the reference's pick. Where the tier runs kernel D
+    (k buckets or more), each row's top-1 score is bitwise the row's
+    largest bucket maximum: the overflow rounds included, every candidate
+    carries kernel F's bits, which are D's."""
     import torch
 
-    from ragraph_tpu_torch.ops.bucket_topk import (_fma_chain,
+    from ragraph_tpu_torch.ops.bucket_topk import (LANE, _fma_chain,
+                                                   bucket_max,
                                                    bucketed_exact_topk)
     s, i = bucketed_exact_topk(q, keys, k, valid_mask=valid, p_max=p_max)
     torch.cuda.synchronize()
@@ -424,20 +436,33 @@ def check_bucket_family(name, q, keys, k, valid=None, p_max=P_MAX):
     live = torch.isfinite(ps)
     bad = not torch.equal(torch.isfinite(s), live)
     err = float((s[live] - ps[live]).abs().max()) if live.any() else 0.0
-    bad |= err > TOL_BUCKET or bool((i[~live] != 0).any())
+    bad |= err > TOL_SCORE or bool((i[~live] != 0).any())
     diff = (i != pi) & live
+    tie_err = 0.0
     if diff.any():
         rows = diff.nonzero()[:, 0]
         picked = _fma_chain(q.to(torch.bfloat16)[rows],
                             keys.to(torch.bfloat16)[i[diff].long()])
-        bad |= bool((picked != ps[diff]).any())
+        tie_err = float((picked - ps[diff]).abs().max())
+        bad |= tie_err > TOL_SCORE
         if valid is not None:
             bad |= not bool(valid[i[diff].long()].all())
-    print(f"  {name}: max_abs_err={err:.3e} tol={TOL_BUCKET:.0e} "
-          f"index_ties={int(diff.sum())} {'ok' if not bad else 'MISMATCH'}",
+    top1 = "dense branch"
+    if -(-keys.shape[0] // LANE) >= k:
+        d_top = bucket_max(keys.to(torch.bfloat16).contiguous(),
+                           q.to(torch.bfloat16).contiguous(),
+                           valid).amax(0)
+        row_live = live[:, 0]
+        top_err = float((s[row_live, 0] - d_top[row_live]).abs().max()) \
+            if row_live.any() else 0.0
+        bad |= top_err > TOL_BUCKET
+        top1 = f"top1_vs_D={top_err:.3e}"
+    print(f"  {name}: max_abs_err={err:.3e} tol={TOL_SCORE:.0e} "
+          f"index_ties={int(diff.sum())} (tie max_abs_err={tie_err:.3e}) "
+          f"{top1} tol={TOL_BUCKET:.0e} {'ok' if not bad else 'MISMATCH'}",
           flush=True)
     if bad:
-        fail(f"{name} disagrees with the dense reference")
+        fail(f"{name} disagrees with the dense reference or with kernel D")
 
 
 def bucket_stages(q, keys, k):
@@ -452,8 +477,24 @@ def bucket_stages(q, keys, k):
     return dict(qh=qh, kh=kh, bm=bm, ids=ids, assign=assign, cand=cand)
 
 
+def d_equals_f(tag, kh, qh, valid, queries):
+    """Kernel D's maxima of ``queries`` (indices into ``qh``) against the
+    maxima of kernel F's scores when every one of them is listed in every
+    bucket: equal bit for bit."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    nb = -(-kh.shape[0] // bt.LANE)
+    d = bt.bucket_max(kh, qh, valid)[:, queries]
+    assign = queries.to(torch.int32).repeat(nb, 1)
+    f = bt.bucket_rescore(assign, qh, kh, valid).amax(2)
+    return check_same(f"D against max of F {tag} P={queries.numel()}", d, f)
+
+
 def bucket_kernel_checks(gen, dev, q_path, keys_path):
-    """Kernels D, E, F and G against their plain versions."""
+    """Kernels D and F against their plain versions (TOL_SCORE) and D
+    against F (bit for bit); E and G against their plain versions (bit for
+    bit); the four with the glue against a dense reference."""
     import torch
 
     from ragraph_tpu_torch.ops import bucket_topk as bt
@@ -474,22 +515,27 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
         return valid
 
     # D and F on ragged shapes: R not a multiple of 128, masks that thin out
-    # or empty whole buckets, E at both limits, empty and out-of-range slots
+    # or empty whole buckets, E at both limits, empty and out-of-range
+    # slots, one to three m64 tiles of slots; then D against F with every
+    # query in every bucket
+    tol = (0.0, TOL_SCORE)
     for n_q, n_r, e, spec, p_max in (
             (70, 1000, 64, None, 5), (5, 130, 8, ("rand", 60), 3),
             (64, 128, 256, None, 32), (1, 4097, 136, ("rand", 900), 7),
-            (130, 2048, 64, ("first", 200), 33)):
+            (130, 2048, 64, ("first", 200), 33),
+            (3, 300, 64, ("rand", 100), 4), (20, 640, 16, None, 130)):
         qh, kh = unit(n_q, e).bfloat16(), unit(n_r, e).bfloat16()
         valid = mask(n_r, spec)
         tag = f"Q={n_q} R={n_r} E={e} valid={spec}"
-        check_same(f"D {tag}", bt.bucket_max(kh, qh, valid),
-                   bt.bucket_max_plain(kh, qh, valid))
+        check_close(f"D {tag}", bt.bucket_max(kh, qh, valid),
+                    bt.bucket_max_plain(kh, qh, valid), tol)
         nb = -(-n_r // bt.LANE)
         assign = torch.randint(-1, n_q + 4, (nb, p_max), generator=gen,
                                device=dev, dtype=torch.int32)
-        check_same(f"F {tag} P={p_max}",
-                   bt.bucket_rescore(assign, qh, kh, valid),
-                   bt.bucket_rescore_plain(assign, qh, kh, valid))
+        check_close(f"F {tag} P={p_max}",
+                    bt.bucket_rescore(assign, qh, kh, valid),
+                    bt.bucket_rescore_plain(assign, qh, kh, valid), tol)
+        d_equals_f(tag, kh, qh, valid, torch.arange(n_q, device=dev))
     # E and G: value ties on a coarse grid, exhausted columns and rows, k at
     # the limit, a row at G's shared-memory limit
     for n_r, n_q, k, grid in ((300, 130, 4, True), (50, 33, 50, False),
@@ -518,16 +564,21 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
     # the path's shape, each kernel on what the path hands it
     st = bucket_stages(q_path, keys_path, K_PATH)
     tag = f"Q={CHUNK} R={keys_path.shape[0]} k={K_PATH}"
-    errs["D"] = check_same(f"D {tag}", st["bm"],
-                           bt.bucket_max_plain(st["kh"], st["qh"]))
+    errs["D"] = check_close(f"D {tag}", st["bm"],
+                            bt.bucket_max_plain(st["kh"], st["qh"]), tol)
+    # the first 64 queries (the first warpgroup of D's first query block),
+    # then 64 that sit in its second warpgroup
+    for lo in (0, 64):
+        d_equals_f(tag, st["kh"], st["qh"], None,
+                   torch.arange(lo, lo + 64, device=dev))
     errs["E"] = max(check_same(f"E {tag} {what}", got, ref)
                     for got, ref, what in zip(
                         bt.column_topk(st["bm"], K_PATH),
                         bt.column_topk_plain(st["bm"], K_PATH), "vi"))
-    errs["F"] = check_same(
-        f"F {tag} P={P_MAX}",
+    errs["F"] = check_close(
+        f"F {tag} P={st['assign'].shape[1]}",
         bt.bucket_rescore(st["assign"], st["qh"], st["kh"]),
-        bt.bucket_rescore_plain(st["assign"], st["qh"], st["kh"]))
+        bt.bucket_rescore_plain(st["assign"], st["qh"], st["kh"]), tol)
     errs["G"] = max(check_same(f"G {tag} {what}", got, ref)
                     for got, ref, what in zip(
                         bt.row_topk(st["cand"], K_PATH),
@@ -803,9 +854,10 @@ def c_kernel_checks(gen, dev):
 
 
 def phase_sass(lib_path):
-    """Kernels C and J must run on the tensor cores: ``cuobjdump -sass`` of
-    the built library, and in every instantiation of C's partial kernel and
-    of J's kernel at least one ``HGMMA`` or ``HMMA`` instruction."""
+    """Kernels C, D, F and J must run on the tensor cores: ``cuobjdump
+    -sass`` of the built library, and in every instantiation of C's partial
+    kernel and of D's, F's and J's kernels at least one ``HGMMA`` or
+    ``HMMA`` instruction."""
     from ragraph_tpu_torch import native
     tool = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
     res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
@@ -820,7 +872,8 @@ def phase_sass(lib_path):
         elif func is not None and ("HGMMA" in line or "HMMA" in line):
             counts[func] += 1
     found = {}
-    for kernel in ("topk_partial_kernel", "mm_probe_kernel"):
+    for kernel in ("topk_partial_kernel", "bucket_max_kernel",
+                   "bucket_rescore_kernel", "mm_probe_kernel"):
         mine = {f: n for f, n in counts.items() if kernel in f}
         for f, n in mine.items():
             print(f"  SASS {f}: {n} HGMMA/HMMA instructions", flush=True)
@@ -931,6 +984,7 @@ def phase_exact_tier(dev, params, keys):
     import torch
 
     from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.ops import bucket_topk as bt
     from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
     from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
     from ragraph_tpu_torch.ops.similarity import l2_normalize
@@ -960,10 +1014,29 @@ def phase_exact_tier(dev, params, keys):
         for s in range(0, n, CHUNK)])
     print(json.dumps({"exact_tier_ms": timer.ms, "launches": launches}),
           flush=True)
-    for name in ("bucket_max", "column_topk", "bucket_rescore", "row_topk"):
-        if launches.get(name, 0) != n_chunks:
+    # kernel F's launches past one a chunk: the rounds for the queries
+    # beyond P_MAX in a bucket, from each chunk's bucket demand
+    kh = keys_n.to(torch.bfloat16).contiguous()
+    nb = -(-kh.shape[0] // bt.LANE)
+    rounds = 0
+    for s0 in range(0, n, CHUNK):
+        qh = l2_normalize(queries[s0:s0 + CHUNK]).to(torch.bfloat16)
+        bvals, ids = bt.column_topk(bt.bucket_max(kh, qh.contiguous()),
+                                    K_PATH)
+        ids = torch.where(bvals <= bt.NEG_INF, nb, ids)
+        demand = int(torch.bincount(ids.reshape(-1), minlength=nb + 1)[:nb]
+                     .max())
+        rounds += max(1, -(-demand // P_MAX)) - 1
+    del kh
+    print(f"  exact tier: bucket_rescore launched "
+          f"{launches.get('bucket_rescore', 0)} times = {n_chunks} chunks + "
+          f"{rounds} overflow rounds", flush=True)
+    want = {"bucket_max": n_chunks, "column_topk": n_chunks,
+            "bucket_rescore": n_chunks + rounds, "row_topk": n_chunks}
+    for name, n_want in want.items():
+        if launches.get(name, 0) != n_want:
             fail(f"exact tier: kernel {name} launched "
-                 f"{launches.get(name, 0)} times, expected {n_chunks}")
+                 f"{launches.get(name, 0)} times, expected {n_want}")
     s, i = (torch.cat([o[j] for o in out]) for j in (0, 1))
     cs, ci = (torch.cat([o[j] for o in ref]) for j in (0, 1))
     if s.shape != (n, K_PATH) or not bool(torch.isfinite(s).all()):
@@ -1843,8 +1916,11 @@ def phase_timing(dev, graph, errs, launches, probes):
     # it; the family as a whole beside kernel C and the library calls
     from ragraph_tpu_torch.ops import bucket_topk as bt
     st = bucket_stages(q, keys, K_PATH)
-    qh, kh, bm, assign, cand = (st[x] for x in
-                                ("qh", "kh", "bm", "assign", "cand"))
+    qh, kh, bm, cand = (st[x] for x in ("qh", "kh", "bm", "cand"))
+    # kernel F's first launch; the queries past P_MAX in a bucket take
+    # further ones (bucket_rescore_rounds)
+    rounds = st["assign"].shape[1] // P_MAX
+    assign = st["assign"][:, :P_MAX].contiguous()
     nb, p_max = assign.shape
     n_live = int((assign < CHUNK).sum())    # slots that hold a query
     w = cand.shape[1]
@@ -1889,7 +1965,7 @@ def phase_timing(dev, graph, errs, launches, probes):
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if library is None else cuda_ms(library,
                                                             reps=5)))
-    lost = torch.zeros(CHUNK * K_PATH, dtype=torch.bool, device=dev)
+    rank = torch.zeros(CHUNK * K_PATH, dtype=torch.int64, device=dev)
     detail.update({
         "bucket_family_ms": cuda_ms(
             lambda: bt.bucketed_exact_topk(q, keys, K_PATH), reps=10),
@@ -1897,11 +1973,12 @@ def phase_timing(dev, graph, errs, launches, probes):
         "bucket_family_library_f32_matmul_topk_ms": c_mm + c_topk,
         "bucket_glue_invert_pairs_ms": cuda_ms(
             lambda: bt.invert_pairs(st["ids"], nb, P_MAX), reps=10),
-        # the host read alone: an empty overflow list brought to the host
-        "bucket_overflow_host_read_ms": cuda_ms(lambda: lost.nonzero(),
-                                                reps=20),
+        # the host read alone: the largest bucket demand brought to the host
+        "bucket_demand_host_read_ms": cuda_ms(lambda: int(rank.max()),
+                                              reps=20),
         "bucket_live_slots": n_live,
-        "bucket_overflow_pairs": CHUNK * K_PATH - n_live})
+        "bucket_overflow_pairs": CHUNK * K_PATH - n_live,
+        "bucket_rescore_rounds": rounds})
     del st, qh, kh, bm, assign, cand
     torch.cuda.empty_cache()
 

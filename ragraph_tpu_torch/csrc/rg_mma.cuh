@@ -1,13 +1,16 @@
-// The tensor-core score tile of kernels C and J (fused_retrieval.cu,
-// probes.cu): a 64 x 128 block of dot products of bf16 rows, summed in f32
-// by Hopper's warpgroup matrix multiply.
+// The tensor-core score tile of kernels C, D, F and J (fused_retrieval.cu,
+// bucket_topk.cu, probes.cu): a 64 x 128 block of dot products of bf16 rows,
+// summed in f32 by Hopper's warpgroup matrix multiply.
 //
 // One warpgroup (128 threads) issues wgmma.mma_async.m64n128k16 with both
 // operands in shared memory: A is 64 rows of one tile, B the 128 rows of
 // another, both K-major (a row's E values are contiguous). Products of bf16
 // values are exact in f32; the tensor cores add them in their own order, so
-// a score differs from a sequential f32 sum (rg_tile.cuh, the plain
-// versions) by a few f32 roundings of a sum of at most 256 terms.
+// a score differs from a sequential f32 sum (the plain versions in ops/) by
+// a few f32 roundings of a sum of at most 256 terms. The order depends only
+// on the k16 steps taken, not on where the two rows sit in their tiles:
+// kernels D and F put the query on A and the key on B, take the same
+// steps, and so give bitwise the same score for the same pair.
 //
 // Layout. A tile of `rows` rows stays bf16 in shared memory, in 128-byte
 // swizzle atoms: the columns are padded with zeros to a multiple of 16 (the
@@ -91,6 +94,28 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ g,
     const int c = t - r * chunks;
     const bool in = g0 + r < limit && c < live;
     const __nv_bfloat16* src = in ? g + (g0 + r) * e + c * 8 : g;
+    cp_async16(dst + (c >> 3) * rows * 128 + r * 128 +
+                   (((c & 7) ^ (r & 7)) << 4),
+               src, in ? 16 : 0);
+  }
+}
+
+// load_tile for a gathered A tile: tile row r holds row ids[r] of a
+// row-major (n_src, e) bf16 matrix for r < n_ids; a row whose id lies
+// outside [0, n_src), the rows from n_ids to `rows` and the padding columns
+// are zero. ids is in global memory.
+template <int kThreads>
+__device__ __forceinline__ void load_gathered_tile(
+    const __nv_bfloat16* __restrict__ g, uint32_t dst,
+    const int* __restrict__ ids, int n_ids, int rows, int n_src, int e) {
+  const int chunks = padded_width(e) / 8;
+  const int live = e / 8;
+  for (int t = threadIdx.x; t < rows * chunks; t += kThreads) {
+    const int r = t / chunks;
+    const int c = t - r * chunks;
+    const int id = r < n_ids ? __ldg(ids + r) : -1;
+    const bool in = id >= 0 && id < n_src && c < live;
+    const __nv_bfloat16* src = in ? g + (long long)id * e + c * 8 : g;
     cp_async16(dst + (c >> 3) * rows * 128 + r * 128 +
                    (((c & 7) ^ (r & 7)) << 4),
                src, in ? 16 : 0);

@@ -47,8 +47,9 @@ _SIGNATURES = {
     # queries per block, splits, rows_per_split, stream
     "rg_fused_cosine_topk": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _P],
-    # keys, q, valid, out, R, Q, E, stream
-    "rg_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # keys, q, valid, out, R, Q, E, queries per block, buckets per block,
+    # stream
+    "rg_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out_v, out_i, R, Q, k, row splits, stream
     "rg_column_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
     # assign, q, keys, valid, out, buckets, P, Q, R, E, stream

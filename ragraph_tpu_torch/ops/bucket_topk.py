@@ -4,7 +4,7 @@ candidates (counterpart of ``ragraph_tpu/ops/bucket_topk.py``).
 **Phase 1 (kernel D)**: the scores of every query against every key, bf16
 inputs and f32 sums, reduced at once to the maximum of each bucket of 128
 consecutive keys. The ``(Q, R)`` scores are never stored; the result is
-``(R/128, Q)``.
+``(R/128, Q)``. Its tile plan is :func:`_bucket_max_plan`.
 
 **Glue (kernel E, then PyTorch)**: each query's ``k`` best buckets. The
 ``k`` largest bucket maxima are ``k`` distinct keys, so the ``k``-th largest
@@ -13,25 +13,27 @@ true top-``k`` scores at least ``t`` and so does its bucket's maximum: **the
 true top-k all lie in the top-k buckets ranked by their maximum** (under
 exact score ties a key of a dropped bucket with an equal score may be
 swapped in, which changes indices and never the scores). The ``Q*k``
-(query, bucket) pairs are then inverted into per-bucket query lists of at
-most ``p_max`` entries by a stable sort on the bucket id.
+(query, bucket) pairs are then inverted into per-bucket query lists by a
+stable sort on the bucket id.
 
 **Phase 2 (kernel F)**: exact scores of each bucket's listed queries against
-its 128 keys, ``(R/128, p_max, 128)`` panels. Pairs beyond ``p_max`` (many
-queries wanting one bucket, e.g. identical queries) are scored by a gather
-in PyTorch, only when there are any; finding that out costs one host read
-per call.
+its 128 keys, ``(R/128, p_max, 128)`` panels, ``p_max`` queries per bucket
+a launch. Where more queries want one bucket (identical queries, say), the
+further ones take further launches of F, ``p_max`` more per bucket each;
+how many follows from the largest demand, which costs one host read per
+call.
 
 **Phase 3 (PyTorch, then kernel G)**: the panels are scattered into a
 ``(Q, k*128)`` candidate matrix and kernel G takes each row's top-``k``; a
 candidate's key index follows from its bucket id and lane.
 
-The scores are those of ``topk(q.bf16 @ keys.bf16.T)`` with f32 sums: phase 2
-repeats phase 1's sums term by term (``csrc/rg_tile.cuh``), and the plain
-versions below add in the same order (:func:`_fma_chain`), so a wrapper
-gives the same bits on the CPU and on the card. Kernel C
-(``fused_retrieval``) sums on the tensor cores in another order: the two
-exact tiers agree to a few f32 roundings, not bit for bit.
+The scores are those of ``topk(q.bf16 @ keys.bf16.T)`` with f32 sums, and
+the tier is exact because every score of phase 2 is bitwise the score that
+phase 1 took the maximum of. On the card kernels D and F sum the exact
+bf16 products on the tensor cores, in one order for both
+(``csrc/rg_mma.cuh``, the tile kernel C uses too). The plain versions below
+add them in sequence (:func:`_fma_chain`), the same order in D's and F's,
+and so differ from the card's scores by a few f32 roundings.
 
 Each kernel has a plain PyTorch version here (``*_plain``). A wrapper runs
 it only for tensors on the CPU; for CUDA tensors it launches the kernel
@@ -44,21 +46,22 @@ import torch
 
 from ragraph_tpu_torch import native
 from ragraph_tpu_torch.ops.csr_segment import _check_cuda
+from ragraph_tpu_torch.ops.fused_retrieval import (_SMEM_RESERVED, _SMEM_SM,
+                                                   _smem_bytes)
 
 NEG_INF = -3.0e38
 LANE = 128    # bucket width
 MAX_K = 128   # kernels E and G keep their lists in shared memory
 MAX_E = 256
-_SMEM = 200_000   # shared memory a block of E, F or G may ask for, in bytes
+_SMEM = 200_000   # shared memory a block of E or G may ask for, in bytes
 _Q_CHUNK = 4096   # queries per pass; the p_max capacity is per pass
-_FALLBACK_PAIRS = 4096   # overflow pairs scored per gather
 
 
 def _fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``sum_c a[..., c] * b[..., c]`` in f32, added in ascending ``c`` into
-    one accumulator that starts at 0: the kernels' order. The inputs hold
-    bf16 values, whose products are exact in f32, so a fused and an unfused
-    multiply-add give the same bits."""
+    one accumulator that starts at 0: the plain versions' order. The inputs
+    hold bf16 values, whose products are exact in f32, so a fused and an
+    unfused multiply-add give the same bits."""
     a, b = a.float(), b.float()
     acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
                       dtype=torch.float32, device=a.device)
@@ -114,6 +117,27 @@ def bucket_max_plain(keys: torch.Tensor, queries: torch.Tensor,
     return scores.view(nb, LANE, n_q).amax(dim=1)
 
 
+def _bucket_max_plan(n_q: int, n_r: int, e: int,
+                     sms: int) -> tuple[int, int, int]:
+    """Kernel D's tile plan on a card with ``sms`` SMs: ``(queries per
+    block, ranges, buckets per range)``.
+
+    Kernel C's plan (``fused_retrieval._splits``) without the top-k lists,
+    so a block's shared memory is C's at ``k = 0``: a block of 128 queries
+    (two warpgroups) shares each bucket's key tile where that still gives
+    every SM a block, else 64. The buckets are cut into as many ranges as
+    the SMs hold resident beside the query blocks (two blocks of 128
+    queries or four of 64 per SM, fewer where shared memory runs out), so
+    the launch is one wave."""
+    nb = -(-n_r // LANE)
+    bq = 128 if -(-n_q // 128) * nb >= sms else 64
+    per_sm = min(256 // bq,
+                 _SMEM_SM // (_smem_bytes(bq, e, 0) + _SMEM_RESERVED))
+    ranges = max(1, min(nb, per_sm * sms // -(-n_q // bq)))
+    per_range = -(-nb // ranges)
+    return bq, -(-nb // per_range), per_range
+
+
 def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
                valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Bucket maxima ``(ceil(R/128), Q)`` f32 of bf16 ``keys (R, E)`` against
@@ -128,10 +152,12 @@ def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
                       device=keys.device)
     if out.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    bq, _, per_range = _bucket_max_plan(n_q, n_r, keys.shape[1], sms)
     rc = native.lib().rg_bucket_max(
         keys.data_ptr(), queries.data_ptr(),
         valid.data_ptr() if valid is not None else None, out.data_ptr(),
-        n_r, n_q, keys.shape[1], native.stream_ptr(keys))
+        n_r, n_q, keys.shape[1], bq, per_range, native.stream_ptr(keys))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out
@@ -292,13 +318,14 @@ def bucket_rescore(assign: torch.Tensor, queries: torch.Tensor,
 
 def invert_pairs(bucket_ids: torch.Tensor, nb: int, p_max: int):
     """Turn each query's bucket list ``(Q, k)`` (an id of ``nb`` marks an
-    unused slot) into per-bucket query lists.
+    unused slot) into per-bucket query lists, ``p_max`` entries a round.
 
-    Returns ``(assign (nb, p_max) int32, slot (nb, p_max) int64, over)``:
-    ``assign[b]`` lists the first ``p_max`` queries that want bucket ``b``
-    (``Q`` in an empty slot), ``slot`` says which of the query's ``k``
-    bucket slots each entry fills, and ``over = (query, bucket, slot)``
-    holds the pairs past ``p_max``.
+    Returns ``(assign (nb, rounds * p_max) int32, slot (nb, rounds * p_max)
+    int64)``: ``assign[b]`` lists the queries that want bucket ``b`` in
+    query order (``Q`` in an empty slot), and ``slot`` says which of the
+    query's ``k`` bucket slots each entry fills. ``rounds`` is the least
+    number that holds the bucket most in demand; finding it is the call's
+    one host read.
     """
     q_len, k = bucket_ids.shape
     dev = bucket_ids.device
@@ -311,36 +338,17 @@ def invert_pairs(bucket_ids: torch.Tensor, nb: int, p_max: int):
     # first occurrence of each bucket in the sorted pair list
     first = torch.full((nb + 1,), n_pairs, dtype=torch.int64, device=dev)
     first.scatter_reduce_(0, sb, ar, "amin")
-    rank = ar - first[sb]
     real = sb < nb
-    kept = real & (rank < p_max)
-    # a dump row and a dump column take every write that is not kept (the
-    # unused slots and the overflow), duplicates land only there
-    col = torch.where(kept, rank, p_max)
-    assign = torch.full((nb + 1, p_max + 1), q_len, dtype=torch.int32,
+    rank = torch.where(real, ar - first[sb], 0)
+    demand = int((rank + 1).masked_fill(~real, 0).max())   # the one host read
+    width = max(1, -(-demand // p_max)) * p_max
+    # a dump row takes the unused slots' writes; duplicates land only there
+    assign = torch.full((nb + 1, width), q_len, dtype=torch.int32,
                         device=dev)
-    assign[sb, col] = torch.where(kept, sq, q_len).to(torch.int32)
-    slot = torch.zeros((nb + 1, p_max + 1), dtype=torch.int64, device=dev)
-    slot[sb, col] = ss
-    lost = (real & ~kept).nonzero().squeeze(1)   # the one host read
-    return (assign[:nb, :p_max].contiguous(), slot[:nb, :p_max].contiguous(),
-            (sq[lost], sb[lost], ss[lost]))
-
-
-def _rescore_pairs(cand, pairs, q_in, k_in, valid) -> None:
-    """Score the overflow ``pairs`` by gathering each pair's 128 keys, and
-    write the rows into ``cand (Q + 1, k, 128)``."""
-    n_r = k_in.shape[0]
-    lane = torch.arange(LANE, device=k_in.device)
-    for s in range(0, pairs[0].numel(), _FALLBACK_PAIRS):
-        fq, fb, fs = (p[s:s + _FALLBACK_PAIRS] for p in pairs)
-        rows = fb[:, None] * LANE + lane[None, :]
-        live = rows < n_r
-        rows = rows.clamp(max=n_r - 1)
-        if valid is not None:
-            live = live & valid[rows]
-        sc = _fma_chain(q_in[fq][:, None, :], k_in[rows])
-        cand[fq, fs] = torch.where(live, sc, NEG_INF)
+    assign[sb, rank] = torch.where(real, sq, q_len).to(torch.int32)
+    slot = torch.zeros((nb + 1, width), dtype=torch.int64, device=dev)
+    slot[sb, rank] = ss
+    return assign[:nb].contiguous(), slot[:nb].contiguous()
 
 
 def bucket_candidates(q_in: torch.Tensor, k_in: torch.Tensor, k: int,
@@ -349,9 +357,10 @@ def bucket_candidates(q_in: torch.Tensor, k_in: torch.Tensor, k: int,
     ``k_in (R, E)`` with at least ``k`` buckets.
 
     Returns what each kernel of the path reads or writes: the bucket maxima
-    ``bm (nb, Q)``, the per-bucket query lists ``assign (nb, p_max)``, each
-    query's bucket list ``bucket_ids (Q, k)`` (``nb`` in an unused slot) and
-    the candidate scores ``cand (Q, k*128)``, slot ``s`` of a row holding the
+    ``bm (nb, Q)``, the per-bucket query lists ``assign (nb, rounds *
+    p_max)`` (kernel F takes ``p_max`` columns a launch), each query's
+    bucket list ``bucket_ids (Q, k)`` (``nb`` in an unused slot) and the
+    candidate scores ``cand (Q, k*128)``, slot ``s`` of a row holding the
     128 scores of the query's ``s``-th bucket (``-3e38`` where there is
     none).
     """
@@ -362,17 +371,18 @@ def bucket_candidates(q_in: torch.Tensor, k_in: torch.Tensor, k: int,
     # fewer than k non-empty buckets: the exhausted tail repeats bucket 0;
     # mark those slots unused so that no bucket is scattered twice
     bucket_ids = torch.where(bvals <= NEG_INF, nb, bucket_ids)
-    assign, slot, over = invert_pairs(bucket_ids, nb, p_max)
+    assign, slot = invert_pairs(bucket_ids, nb, p_max)
 
-    panels = bucket_rescore(assign, q_in, k_in, valid)     # (nb, P, 128)
-
-    # row Q of the candidates takes the empty slots' panels
+    # row Q of the candidates takes the empty slots' panels; a round past
+    # the first scores the queries beyond p_max of the buckets that have
+    # them, by the same kernel, so every candidate has phase 1's bits
     cand = torch.full((q_len + 1, k, LANE), NEG_INF, dtype=torch.float32,
                       device=q_in.device)
-    cand[assign.reshape(-1).long(), slot.reshape(-1)] = \
-        panels.reshape(-1, LANE)
-    if over[0].numel():
-        _rescore_pairs(cand, over, q_in, k_in, valid)
+    for c in range(0, assign.shape[1], p_max):
+        rnd = assign[:, c:c + p_max].contiguous()
+        panels = bucket_rescore(rnd, q_in, k_in, valid)    # (nb, P, 128)
+        cand[rnd.reshape(-1).long(), slot[:, c:c + p_max].reshape(-1)] = \
+            panels.reshape(-1, LANE)
     return bm, assign, bucket_ids, cand[:q_len].reshape(q_len, k * LANE)
 
 
@@ -383,7 +393,8 @@ def bucketed_exact_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
     ``keys_n (R, E)``, both scored in bf16 with f32 sums (see module doc).
 
     ``valid_mask (R,)`` bool: invalid rows never surface. ``p_max`` is the
-    per-bucket capacity of phase 2 before the gather fallback.
+    per-bucket capacity of one launch of kernel F; the queries beyond it
+    take further launches.
 
     Returns ``(scores (Q, k) f32, indices (Q, k) int32)`` sorted descending.
     The scores are always exact; indices may differ from a full sort only

@@ -6,10 +6,11 @@ the three Pallas kernels that live in ``benchmarks/bench_exact_phases.py``,
 - :func:`matmul_probe` (J): the bf16 product ``keys · queriesᵀ`` with f32
   sums, of which one row of every 128-row group is written:
   ``out[g, q] = keys[128·g + pick_row] · queries[q]``. Phase 1 of the bucket
-  top-k (kernel D) without the group maximum. On the card it is kernel C's
-  tensor-core tile, whose f32 sums run in another order than D's and F's:
-  it equals kernel F's score of that key to a few f32 roundings. The plain
-  version adds in D's order, so on the CPU the two agree bit for bit.
+  top-k (kernel D) without the group maximum. On the card it is the
+  tensor-core tile of kernels C, D and F with the keys on the A side, where
+  D and F put the queries: it equals kernel F's score of that key to a few
+  f32 roundings. The plain version adds in sequence, as D's and F's plain
+  versions do, so on the CPU the two agree bit for bit.
 - :func:`packed_table_segsum` (K): kernel A's weighted segment sum from a
   table packed two rows to one, ``out[r] = Σ_e w_lo[e]·T[idx_half[e], :D] +
   w_hi[e]·T[idx_half[e], D:]`` over receiver-sorted CSR. Both weights may be

@@ -142,30 +142,93 @@ def test_phase2_rescore_matches_jnp_reference():
 
 
 def test_invert_pairs_lists_each_pair_once():
-    """Every (query, bucket) pair lands either in the bucket's list, with
-    its slot, or in the overflow; unused slots (id nb) land nowhere."""
+    """Every (query, bucket) pair lands once in the bucket's list, with its
+    slot, in query order from column 0: the first ``p_max`` columns are the
+    first launch of kernel F, each further ``p_max`` one more. Unused slots
+    (id nb) land nowhere."""
     rng = np.random.default_rng(11)
     n_q, k, nb, p_max = 40, 5, 6, 8
     ids = np.stack([rng.permutation(nb + 1)[:k] for _ in range(n_q)])
-    assign, slot, over = tbt.invert_pairs(torch.from_numpy(ids).int(), nb,
-                                          p_max)
-    assert assign.shape == slot.shape == (nb, p_max)
+    assign, slot = tbt.invert_pairs(torch.from_numpy(ids).int(), nb, p_max)
+    demand = max(int((ids == b).sum()) for b in range(nb))
+    assert demand > 2 * p_max          # three rounds or more
+    assert assign.shape == slot.shape == (nb, -(-demand // p_max) * p_max)
     assert assign.dtype == torch.int32
-    seen = set()
+    seen = []
     for b in range(nb):
-        for p in range(p_max):
-            qid = int(assign[b, p])
-            if qid < n_q:
-                assert ids[qid, int(slot[b, p])] == b
-                seen.add((qid, b))
-    for qid, b, s in zip(*(t.tolist() for t in over)):
-        assert ids[qid, s] == b
-        assert (qid, b) not in seen
-        seen.add((qid, b))
-    want = {(qi, int(b)) for qi in range(n_q) for b in ids[qi] if b < nb}
-    assert seen == want
-    assert len(over[0]) == sum(max(0, int((ids == b).sum()) - p_max)
-                               for b in range(nb))
+        listed = [int(qid) for qid in assign[b] if qid < n_q]
+        assert listed == sorted(listed)
+        assert (assign[b, len(listed):] == n_q).all()
+        for p, qid in enumerate(listed):
+            assert ids[qid, int(slot[b, p])] == b
+            seen.append((qid, b))
+    want = [(qi, int(b)) for qi in range(n_q) for b in ids[qi] if b < nb]
+    assert sorted(seen) == sorted(want)
+
+
+def test_overflow_pairs_go_through_bucket_rescore(monkeypatch):
+    """Past ``p_max`` queries a bucket, every (query, bucket) pair is still
+    scored by ``bucket_rescore`` (kernel F on the card), ``p_max`` columns a
+    launch, and the result still equals the JAX package's."""
+    q_len, r_len, e, k, _, _, p_max = CASES["overflow-identical-queries"]
+    rng = np.random.default_rng(len("overflow-identical-queries"))
+    q, keys = _unit(rng, q_len, e), _unit(rng, r_len, e)
+    q = np.repeat(q[:1], q_len, axis=0)
+    calls = []
+
+    def spy(assign, *args, **kwargs):
+        calls.append(assign.clone())
+        return real(assign, *args, **kwargs)
+    real = tbt.bucket_rescore
+    monkeypatch.setattr(tbt, "bucket_rescore", spy)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(keys)
+    ids = tbt.bucket_candidates(qt.bfloat16(), kt.bfloat16(), k, None,
+                                p_max)[2]
+    rounds = len(calls)
+    assert rounds == -(-q_len // p_max)     # every query wants k buckets
+    assert all(c.shape == (r_len // 128, p_max) for c in calls)
+    scored = sorted((int(qid), b) for c in calls
+                    for b, row in enumerate(c.tolist())
+                    for qid in row if qid < q_len)
+    want = sorted((qi, int(b)) for qi in range(q_len) for b in ids[qi]
+                  if b < r_len // 128)
+    assert scored == want
+
+    calls.clear()
+    s, i = tbt.bucketed_exact_topk(qt, kt, k, p_max=p_max)
+    assert len(calls) == rounds
+    want_s, want_i = jbt.bucketed_exact_topk(
+        jnp.asarray(q), jnp.asarray(keys), k, block_q=256, block_r=512,
+        p_max=p_max, interpret=True)
+    _assert_topk_close(s.numpy(), i.numpy(), want_s, want_i)
+
+
+@pytest.mark.parametrize("n_q,n_r,e,sms", [
+    (2048, 262_144, 64, 132),    # a refresh chunk: 16 x 16 blocks
+    (2048, 262_144, 128, 132),   # the probe script's shape
+    (2048, 262_144, 256, 132),   # one block of 128 queries per SM
+    (4096, 262_144, 64, 114),
+    (70, 1000, 64, 132),         # fewer blocks than SMs
+    (1, 4097, 136, 132),
+    (130, 2048, 8, 78),
+])
+def test_bucket_max_plan_is_one_wave_over_every_bucket(n_q, n_r, e, sms):
+    """Kernel D's plan covers every bucket once, fits shared memory and the
+    SMs' resident blocks, and takes 128 queries a block where that leaves
+    no SM idle."""
+    bq, ranges, per_range = tbt._bucket_max_plan(n_q, n_r, e, sms)
+    nb = -(-n_r // 128)
+    assert bq in (64, 128)
+    assert (ranges - 1) * per_range < nb <= ranges * per_range
+    # the resident query tile and two key tiles, 64-column atoms of the
+    # width padded to 16
+    smem = 1024 + (bq + 2 * 128) * 128 * -(-(-(-e // 16) * 16) // 64)
+    assert smem <= 232_448
+    per_sm = min(256 // bq, 233_472 // (smem + 1024))
+    assert -(-n_q // bq) * ranges <= max(per_sm * sms, -(-n_q // bq))
+    assert (bq == 128) == (-(-n_q // 128) * nb >= sms)
+    if (n_q, n_r, e, sms) == (2048, 262_144, 64, 132):
+        assert (bq, ranges, per_range) == (128, 16, 128)
 
 
 CASES = {
