@@ -5,16 +5,19 @@ probe and node paths on one GPU.
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
-1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc, and count
+1. build every kernel in ``ragraph_tpu_torch/csrc`` with nvcc, count
    the tensor-core instructions (``HGMMA``/``HMMA``) in the machine code of
-   kernels C, D, F and J (``cuobjdump -sass``);
+   kernels C, D, F and J (``cuobjdump -sass``), and require no stack frame
+   and no spill in any of kernels E's and G's instantiations (their top-k
+   lists live in registers; ``-Xptxas -v``);
 2. hold each of the twelve kernels against its plain PyTorch version on the
    card, at its path's shapes and at ragged small shapes; kernel D's maxima
    against the maxima of kernel F's scores, bit for bit; the bucket family
    against a dense reference, its top-1 bit for bit kernel D's largest
    maximum; the three probe kernels also against their neighbours (J
    within ``TOL_SCORE`` of kernel F's scores and not above kernel D's
-   maxima by more, K against kernel A, L exact);
+   maxima by more, K against kernel A, L exact); E and G bit for bit at
+   every k of ``K_SWEEP`` on ragged, tied and exhausted inputs;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
@@ -22,8 +25,9 @@ Phases (any failure exits non-zero):
 4. the retrieval tiers on the same graph, each with its launches counted
    from zero: the exact tier (all 128 chunks of the refresh's queries
    through ``cosine_topk(method="auto", recall_target=1.0)``, held against
-   the fused kernel), the huge-k tier (a RAG ``generate`` with the koubei
-   ``vanilla`` config, ``retrieve_num=100000`` against a 524,288-row
+   the fused kernel, then a ``torch.profiler`` window over eight chunks
+   for the device's busy share), the huge-k tier (a RAG ``generate`` with
+   the koubei ``vanilla`` config, ``retrieve_num=100000`` against a 524,288-row
    library, both ``selection_dtype`` values, held against ``torch.topk``)
    and the int8 tier (one chunk, pre-quantized table, ``rescore_pad=22``);
    the ops path on the 2^21 edges: ``sorted_segment_sum`` (the prefix sum,
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero):
    finite and fall, every gradient finite and non-zero, and the launches
    per step as counted;
 7. time each kernel, its plain version and one PyTorch library call that
-   computes the same function, beside its bound;
+   computes the same function, beside its bound (E and G also by device
+   time alone, and at k = 20 and 50);
 8. time a pretrain step and a finetune step (forward, backward, optimizer
    apart) beside the same step on plain PyTorch ops;
 9. the static node pipeline at full width (3,000 synthetic graphs written
@@ -122,6 +127,26 @@ def fail(msg: str) -> None:
 def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     from ragraph_tpu_torch.bench.timing import timed_ms
     return timed_ms(fn, reps, warmup, "cuda")
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``, its kernels and copies: the
+    stream is held by a sleeping kernel while the host queues ``reps``
+    calls behind the start event, so the events time the device alone.
+    ``cuda_ms`` instead also counts the host's time between launches, which
+    sets the pace of a loop of calls shorter than their Python wrappers."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)    # about 25 ms: longer than the queueing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def StageTimer():
@@ -491,6 +516,71 @@ def d_equals_f(tag, kh, qh, valid, queries):
     return check_same(f"D against max of F {tag} P={queries.numel()}", d, f)
 
 
+# k of kernels E's and G's checks: each side of their list lengths (one
+# warp list of 32, 64 or 128), k = 16 and 17 (the old kernels' bound),
+# the configs' 10, 20 and 50, and the limit
+K_SWEEP = (1, 4, 7, 10, 16, 17, 20, 32, 33, 50, 64, 65, 128)
+
+
+def eg_kernel_checks(gen, dev):
+    """Kernels E and G against their plain versions, values and indices
+    bit for bit (TOL_BUCKET), at every k of K_SWEEP: value ties on a coarse
+    grid, a column (row) with nothing in it, one exhausted halfway, one of
+    equal values, fewer rows (columns) than k, widths that are not a
+    multiple of 4 (4-byte loads), and rows past the 50,000 values G once
+    held in shared memory."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+
+    def make(shape, grid):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return torch.round(x * 2) if grid else x
+
+    def same(tag, fn, plain, x):
+        worst = 0.0
+        for k in K_SWEEP:
+            for got, ref, what in zip(fn(x, k), plain(x, k), "vi"):
+                if got.shape != ref.shape:
+                    fail(f"{tag} k={k} {what}: shape {tuple(got.shape)}")
+                if what == "v":
+                    err = float((got - ref).abs().max()) if got.numel() \
+                        else 0.0
+                    ok = bool(torch.isfinite(got).all()) and err <= TOL_BUCKET
+                else:
+                    err = float((got != ref).sum())
+                    ok = err == 0
+                if not ok:
+                    fail(f"{tag} k={k} {what} disagrees with its plain "
+                         f"version ({err:.3e})")
+                worst = max(worst, err)
+        print(f"  {tag} k={','.join(map(str, K_SWEEP))}: "
+              f"max_abs_err={worst:.3e} tol={TOL_BUCKET:.0e} ok", flush=True)
+
+    for n_r, n_q, grid in ((300, 130, True), (50, 33, False),
+                           (1000, 40, True), (2, 1, False),
+                           (777, 2049, False), (5, 64, True),
+                           (2048, 2048, False)):
+        x = make((n_r, n_q), grid)
+        x[:, 0] = bt.NEG_INF                # a column with nothing in it
+        x[n_r // 2:, -1] = bt.NEG_INF
+        if n_q > 2:
+            x[:, 1] = 0.5                   # a column of equal values
+        same(f"E R={n_r} Q={n_q} grid={grid}",
+             bt.column_topk, bt.column_topk_plain, x)
+    for n_q, w, grid in ((70, 260, True), (9, 16384, True),
+                         (3, 50000, False), (2, 100000, False),
+                         (1, 1, False), (300, 1280, False), (5, 1283, True),
+                         (4, 7, False)):
+        x = make((n_q, w), grid)
+        x[0] = bt.NEG_INF
+        x[-1, w // 2:] = bt.NEG_INF
+        if n_q > 2:
+            x[1] = 0.5                      # a row of equal values
+        same(f"G Q={n_q} W={w} grid={grid}",
+             bt.row_topk, bt.row_topk_plain, x)
+
+
 def bucket_kernel_checks(gen, dev, q_path, keys_path):
     """Kernels D and F against their plain versions (TOL_SCORE) and D
     against F (bit for bit); E and G against their plain versions (bit for
@@ -536,30 +626,7 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
                     bt.bucket_rescore(assign, qh, kh, valid),
                     bt.bucket_rescore_plain(assign, qh, kh, valid), tol)
         d_equals_f(tag, kh, qh, valid, torch.arange(n_q, device=dev))
-    # E and G: value ties on a coarse grid, exhausted columns and rows, k at
-    # the limit, a row at G's shared-memory limit
-    for n_r, n_q, k, grid in ((300, 130, 4, True), (50, 33, 50, False),
-                              (1000, 40, 128, True), (2, 1, 1, False),
-                              (777, 2049, 10, False)):
-        x = torch.randn(n_r, n_q, generator=gen, device=dev)
-        if grid:
-            x = torch.round(x * 2)
-        x[:, 0] = bt.NEG_INF                # a column with nothing in it
-        x[n_r // 2:, -1] = bt.NEG_INF
-        for got, ref, what in zip(bt.column_topk(x, k),
-                                  bt.column_topk_plain(x, k), "vi"):
-            check_same(f"E R={n_r} Q={n_q} k={k} {what}", got, ref)
-    for n_q, w, k, grid in ((70, 260, 4, True), (9, 16384, 128, True),
-                            (3, 50000, 7, False), (1, 1, 1, False),
-                            (300, 1280, 10, False)):
-        x = torch.randn(n_q, w, generator=gen, device=dev)
-        if grid:
-            x = torch.round(x * 2)
-        x[0] = bt.NEG_INF
-        x[-1, w // 2:] = bt.NEG_INF
-        for got, ref, what in zip(bt.row_topk(x, k),
-                                  bt.row_topk_plain(x, k), "vi"):
-            check_same(f"G Q={n_q} W={w} k={k} {what}", got, ref)
+    eg_kernel_checks(gen, dev)
 
     # the path's shape, each kernel on what the path hands it
     st = bucket_stages(q_path, keys_path, K_PATH)
@@ -601,12 +668,19 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
             f"D-G Q={n_q} R={n_r} E={e} k={k} valid={spec} "
             f"same_queries={same} p_max={p_max}", q, keys, k,
             mask(n_r, spec), p_max)
-    for fn in (bt.column_topk, bt.row_topk):
+    for fn, x, what in ((bt.column_topk, torch.zeros(4, 4, device=dev),
+                         f"k = {bt.MAX_K + 1}"),
+                        (bt.row_topk, torch.zeros(4, 4, device=dev),
+                         f"k = {bt.MAX_K + 1}"),
+                        (bt.column_topk, torch.zeros(0, 4, device=dev),
+                         "no rows"),
+                        (bt.row_topk, torch.zeros(4, 0, device=dev),
+                         "no columns")):
         try:
-            fn(torch.zeros(4, 4, device=dev), bt.MAX_K + 1)
+            fn(x, bt.MAX_K + 1 if what.startswith("k") else 1)
         except ValueError:
             continue
-        fail(f"{fn.__name__} took k = {bt.MAX_K + 1}")
+        fail(f"{fn.__name__} took {what}")
     return errs
 
 
@@ -884,6 +958,33 @@ def phase_sass(lib_path):
     print(json.dumps({"sass_tensor_core_instructions": found}), flush=True)
 
 
+def phase_register_lists(log):
+    """Kernels E and G keep their top-k lists in registers: in the
+    ``-Xptxas -v`` build log every instantiation of their kernels (list
+    lengths 32, 64, 128, two load widths: six each) must show no stack
+    frame and no spill."""
+    import re
+    found, func = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            func = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and func and re.search(r"(column|row)_topk_kernelILi", func):
+            found[func] = tuple(int(g) for g in m.groups())
+        func = None
+    for f, (frame, st, ld) in found.items():
+        print(f"  ptxas {f}: {frame} bytes stack frame, {st} bytes spill "
+              f"stores, {ld} bytes spill loads", flush=True)
+    if len(found) != 12:
+        fail(f"kernels E and G: {len(found)} of 12 instantiations found in "
+             f"the ptxas log")
+    if any(any(v) for v in found.values()):
+        fail("a register-list kernel of E or G has a stack frame or spills")
+
+
 def phase_main_path(dev, ds, graph, params):
     import torch
 
@@ -1057,7 +1158,73 @@ def phase_exact_tier(dev, params, keys):
           f"{'ok' if not bad else 'MISMATCH'}", flush=True)
     if bad:
         fail("exact tier disagrees with the fused kernel")
+    exact_tier_profile(queries, keys_n)
     return launches
+
+
+def exact_tier_profile(queries, keys_n, n_chunks=8):
+    """A ``torch.profiler`` window over ``n_chunks`` chunks of the exact
+    tier, after a warm pass: the device's busy share (kernel and copy time
+    over the span from the first device event to the last), the host-clock
+    time of the window (tracing on) and the device time by kernel name.
+    It measures and decides nothing: a profiler that does not start, or a
+    trace without device time, prints "not measured", while an error of
+    the tier itself ends the script as anywhere else."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ragraph_tpu_torch.ops.topk import cosine_topk
+
+    def run():
+        for s0 in range(0, n_chunks * CHUNK, CHUNK):
+            cosine_topk(queries[s0:s0 + CHUNK], keys_n, K_PATH,
+                        keys_normalized=True, method="auto",
+                        recall_target=1.0)
+        torch.cuda.synchronize()
+
+    def not_measured(why):
+        print(json.dumps({"exact_tier_profile": f"not measured ({why})"}),
+              flush=True)
+
+    run()
+    # only the profiler's own set-up and the reading of its trace may fail
+    # quietly; an error of the kernels or the glue in run() ends the script
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as exc:
+        not_measured(f"{type(exc).__name__}: {exc}")
+        return
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        prof.stop()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        by_name = {}            # names cut to 100 characters, summed
+        for e in events:
+            by_name[e.name[:100]] = (by_name.get(e.name[:100], 0.0)
+                                     + e.time_range.elapsed_us() / 1e3)
+        busy = sum(by_name.values())
+        span = (max(e.time_range.end for e in events)
+                - min(e.time_range.start for e in events)) / 1e3 \
+            if events else 0.0
+    except Exception as exc:
+        not_measured(f"{type(exc).__name__}: {exc}")
+        return
+    if not busy > 0 or not span > 0:
+        not_measured("no device time in the trace")
+        return
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:14]
+    print(json.dumps({"exact_tier_profile": {
+        "chunks": n_chunks, "host_window_ms_tracing_on": wall_ms,
+        "device_span_ms": span, "device_busy_ms": busy,
+        "device_busy_share_of_span": busy / span,
+        "device_ms_by_name": dict(top)}}),
+        flush=True)
 
 
 def phase_huge_k(dev, graph, params):
@@ -1933,8 +2100,9 @@ def phase_timing(dev, graph, errs, launches, probes):
         "bucket_rescore": (4 * nb * p_max + 2 * CHUNK * D + 2 * n * D
                            + 4 * nb * p_max * bt.LANE,
                            2 * n_live * bt.LANE * D, BF16_FLOP_PER_MS),
+        # E and G: one comparison a value read
         "row_topk": (4 * CHUNK * w + 8 * CHUNK * K_PATH,
-                     K_PATH * CHUNK * w, F32_FLOP_PER_MS),
+                     CHUNK * w, F32_FLOP_PER_MS),
     }
     runs = {
         # name: (key in errs, TPU kernel, kernel, plain version, library)
@@ -1965,6 +2133,34 @@ def phase_timing(dev, graph, errs, launches, probes):
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if library is None else cuda_ms(library,
                                                             reps=5)))
+        if library is not None:     # E and G: shorter than their wrappers
+            kernels[-1].update(device_ms=device_ms(kernel),
+                               library_device_ms=device_ms(library))
+    # E and G at k = 20 and 50 on inputs of the path's shapes (E's input
+    # does not depend on k; G's is each k's own candidate matrix), each
+    # beside torch.topk on the same input
+    sweep = []
+    for kk in (20, 50):
+        cand_k = bucket_stages(q, keys, kk)["cand"]
+        for name, kernel, library, n_bytes, n_ops in (
+                ("column_topk", lambda: bt.column_topk(bm, kk),
+                 lambda: torch.topk(bm, kk, dim=0),
+                 4 * nb * CHUNK + 8 * CHUNK * kk, nb * CHUNK),
+                ("row_topk", lambda: bt.row_topk(cand_k, kk),
+                 lambda: torch.topk(cand_k, kk, dim=1),
+                 4 * cand_k.numel() + 8 * CHUNK * kk, cand_k.numel())):
+            by_bytes = n_bytes / HBM_BYTES_PER_MS
+            by_ops = n_ops / F32_FLOP_PER_MS
+            sweep.append(dict(
+                name=name, k=kk, shape=list(bm.shape if name[0] == "c"
+                                            else cand_k.shape),
+                ms=cuda_ms(kernel, reps=10), device_ms=device_ms(kernel),
+                bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=cuda_ms(library, reps=5),
+                library_device_ms=device_ms(library)))
+        del cand_k
+    print(json.dumps({"topk_k_sweep": sweep}), flush=True)
     rank = torch.zeros(CHUNK * K_PATH, dtype=torch.int64, device=dev)
     detail.update({
         "bucket_family_ms": cuda_ms(
@@ -2258,6 +2454,7 @@ def main() -> int:
     native.lib()
     print(f"  build_seconds={seconds:.1f}", flush=True)
     phase_sass(lib_path)
+    phase_register_lists(log)
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()

@@ -30,19 +30,26 @@
 //      its two queries, then the four threads of the quad by shuffles. The
 //      (Q, R) scores never leave registers. The plan (queries per block,
 //      buckets per range) is ops/bucket_topk.py::_bucket_max_plan.
-//   E  bytes: the (2,048, 2,048) f32 maxima are read once (16.8 MB). Columns
-//      are strided in memory, so a warp takes 32 neighbouring columns of one
-//      row (a 128-byte line) and the rows are dealt out over the block's
-//      warps; each thread keeps a sorted list of k entries in shared memory
-//      and inserts only values above its k-th, and one warp merges the lists.
+//   E  bytes: the (2,048, 2,048) f32 maxima are read once (16.8 MB, 5.0 us
+//      at 3.35 TB/s). E is G on the columns: a block takes 8 columns (a
+//      32-byte sector of every row; 2,048 / 8 = 256 blocks for 132 SMs,
+//      ops/bucket_topk.py::_column_topk_plan), streams its rows through a
+//      four-stage ring of 256-row tiles in shared memory by 16-byte
+//      cp.async copies (4-byte ones where rows are not 16-byte aligned), so
+//      copies stay in flight while the warps compare, and one warp takes
+//      each column, its lanes over the rows, as G's lanes are over a row.
 //   F  bytes: 34 MB of keys in, a 33.5 MB panel array out. One warpgroup
 //      per bucket: the bucket's keys are the B tile, its slots' query rows,
 //      64 at a time, a gathered A tile (cp.async from each slot's row, zero
 //      for an empty slot; the TPU selected them with a one-hot matmul). The
 //      panel is stored from the accumulators, two neighbouring keys a thread
 //      (8 bytes), so a warp's store fills whole 32-byte sectors.
-//   G  bytes: a (2,048, 1,280) f32 candidate matrix (10.5 MB). One warp per
-//      row holds it in shared memory and runs k rounds of a warp arg-max.
+//   G  bytes: a (2,048, 1,280) f32 candidate matrix (10.5 MB, 3.2 us).
+//      One warp per row and no copy of the row: a lane issues 10 16-byte
+//      loads (the path's 40 values a lane) before it compares. Occupancy
+//      is set by registers alone, and a row may be of any width.
+//   E and G select in registers (rg_topk.cuh): one list a warp of 32, 64
+//      or 128 entries, sorted across the lanes, behind its own k-th entry.
 //
 // Ties: E and G resolve to the lowest row / column, and once a column or row
 // is exhausted they repeat (-3e38, 0), as the TPU kernels do for inputs that
@@ -52,6 +59,7 @@
 
 #include "rg_mma.cuh"
 #include "rg_tile.cuh"
+#include "rg_topk.cuh"
 
 namespace {
 
@@ -59,7 +67,11 @@ using rg::kFull;
 using rg::kNegInf;
 
 constexpr int kLane = rgm::kTileN;  // keys per bucket: one B tile
-constexpr int kColsPerBlock = 32;   // E: one warp's width
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 // ---- D and F: the key tile's live flags ------------------------------------
 
@@ -195,68 +207,96 @@ cudaError_t launch_bucket_max(const dim3& grid, size_t smem, cudaStream_t s,
 
 // ---- E ---------------------------------------------------------------------
 
-// blockDim = (32, S). Thread (tx, ty) owns column blockIdx.x*32 + tx and rows
-// ty, ty + S, ...; its sorted list is entry j at ls[j * threads + tid].
-__global__ void column_topk_kernel(const float* __restrict__ x,
-                                   float* __restrict__ out_v,
-                                   int* __restrict__ out_i, int n_r, int n_q,
-                                   int k) {
-  extern __shared__ __align__(16) float smem[];
-  const int threads = blockDim.x * blockDim.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  float* ls = smem;                                       // (k, threads)
-  int* li = reinterpret_cast<int*>(smem + (size_t)k * threads);
-  const int col = blockIdx.x * kColsPerBlock + threadIdx.x;
-  const int n_split = blockDim.y;
+constexpr int kECols = 8;     // columns per block, one warp each: a 32-byte
+                              // sector of every row
+constexpr int kETile = 256;   // rows per stage of the copy ring: 8 a lane
+constexpr int kEStages = 4;
+constexpr int kEStage = kETile * kECols;  // floats per stage
 
-  for (int j = 0; j < k; ++j) {
-    ls[j * threads + tid] = kNegInf;
-    li[j * threads + tid] = 0;
+// Element (r, c) of a stage: rows of 8 floats, the two 16-byte halves
+// swapped in every other group of four rows, so that a warp reading one
+// column over 32 rows meets each bank it touches 4 times, not 8.
+__device__ __forceinline__ int e_at(int r, int c) {
+  return r * kECols + (c ^ (r & 4));
+}
+
+// Stage rows r0 .. r0 + kETile - 1 (those below n_r) of the block's
+// columns c0 .. c0 + 7 (those below n_q), all threads of the block: 16-byte
+// copies where every row starts 16-byte aligned, else 4-byte ones.
+template <bool kVec>
+__device__ __forceinline__ void e_stage(const float* __restrict__ x,
+                                        float* st, int r0, int n_r, int c0,
+                                        int n_q) {
+  constexpr int kChunk = kVec ? 4 : 1;
+  for (int c = threadIdx.x; c < kEStage / kChunk; c += blockDim.x) {
+    const int row = c / (kECols / kChunk);
+    const int col = c % (kECols / kChunk) * kChunk;
+    if (r0 + row >= n_r || c0 + col >= n_q) continue;
+    const float* src = x + (long long)(r0 + row) * n_q + c0 + col;
+    if (kVec)
+      rgk::cp_async16(st + e_at(row, col), src);
+    else
+      rgk::cp_async4(st + e_at(row, col), src);
   }
-  if (col < n_q) {
-    float thr = kNegInf;
-    for (int r = threadIdx.y; r < n_r; r += n_split) {
-      const float v = x[(long long)r * n_q + col];
-      if (v > thr) {
-        // after every equal value: among ties the lower row stays first
-        int j = k - 1;
-        while (j > 0 && ls[(j - 1) * threads + tid] < v) {
-          ls[j * threads + tid] = ls[(j - 1) * threads + tid];
-          li[j * threads + tid] = li[(j - 1) * threads + tid];
-          --j;
-        }
-        ls[j * threads + tid] = v;
-        li[j * threads + tid] = r;
-        thr = ls[(k - 1) * threads + tid];
-      }
+}
+
+// Block x takes columns 8x .. 8x + 7, warp w column 8x + w, lane l rows l,
+// l + 32, ... of every stage (rg_topk.cuh's selector for k <= KCAP).
+template <int KCAP, bool kVec>
+__global__ void __launch_bounds__(32 * kECols)
+column_topk_kernel(const float* __restrict__ x, float* __restrict__ out_v,
+                   int* __restrict__ out_i, int n_r, int n_q, int k) {
+  constexpr int kPer = kETile / 32;  // a lane's rows in a stage
+  extern __shared__ __align__(16) float ring[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * kECols;
+  const int col = c0 + warp;
+  const int n_tiles = (n_r + kETile - 1) / kETile;
+  rgk::TopK<KCAP> top;
+  top.init(k);
+
+  for (int s = 0; s < kEStages - 1; ++s) {
+    if (s < n_tiles)
+      e_stage<kVec>(x, ring + s * kEStage, s * kETile, n_r, c0, n_q);
+    rgk::cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    // tile t has landed, and every warp is done with tile t - 1, whose
+    // stage takes tile t + kEStages - 1
+    rgk::cp_async_wait<kEStages - 2>();
+    __syncthreads();
+    const int nt = t + kEStages - 1;
+    if (nt < n_tiles)
+      e_stage<kVec>(x, ring + nt % kEStages * kEStage, nt * kETile, n_r, c0,
+                    n_q);
+    rgk::cp_async_commit();
+    if (col < n_q) {
+      const float* st = ring + t % kEStages * kEStage;
+      const int r0 = t * kETile + lane;
+      float buf[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u)
+        buf[u] = r0 + 32 * u < n_r ? st[e_at(lane + 32 * u, warp)] : kNegInf;
+      top.take(buf, [&](int u) { return r0 + 32 * u; });
     }
   }
-  __syncthreads();
-  if (threadIdx.y != 0 || col >= n_q) return;
+  if (col < n_q)
+    top.write(out_v + (long long)col * k, out_i + (long long)col * k);
+}
 
-  // merge the column's n_split sorted lists: k rounds over their heads,
-  // by (value descending, row ascending)
-  int head[32];
-  for (int s = 0; s < n_split; ++s) head[s] = 0;
-  for (int t = 0; t < k; ++t) {
-    float bv = -INFINITY;
-    int bi = INT32_MAX, bs = -1;
-    for (int s = 0; s < n_split; ++s) {
-      if (head[s] >= k) continue;
-      const int at = head[s] * threads + s * blockDim.x + threadIdx.x;
-      const float v = ls[at];
-      const int i = li[at];
-      if (v > bv || (v == bv && i < bi)) {
-        bv = v;
-        bi = i;
-        bs = s;
-      }
-    }
-    ++head[bs];
-    const bool dead = !(bv > kNegInf);
-    out_v[(long long)col * k + t] = dead ? kNegInf : bv;
-    out_i[(long long)col * k + t] = dead ? 0 : bi;
-  }
+template <int KCAP>
+cudaError_t launch_column_topk(bool vec, const float* x, float* out_v,
+                               int* out_i, int n_r, int n_q, int k,
+                               cudaStream_t s) {
+  auto kernel = vec ? column_topk_kernel<KCAP, true>
+                    : column_topk_kernel<KCAP, false>;
+  constexpr size_t smem = sizeof(float) * kEStages * kEStage;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(n_q + kECols - 1) / kECols, 32 * kECols, smem, s>>>(
+      x, out_v, out_i, n_r, n_q, k);
+  return cudaGetLastError();
 }
 
 // ---- F ---------------------------------------------------------------------
@@ -326,53 +366,65 @@ bucket_rescore_kernel(const int* __restrict__ assign,
 
 // ---- G ---------------------------------------------------------------------
 
-// One warp per row; the row lives in shared memory while its k maxima are
-// taken out one by one.
-__global__ void row_topk_kernel(const float* __restrict__ x,
-                                float* __restrict__ out_v,
-                                int* __restrict__ out_i, int n_q, int w,
-                                int k) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32;
+// Values a lane holds in a batch: 10 16-byte loads (the path's row of
+// 1,280 values, 40 a lane, in one batch), or 20 4-byte loads where rows
+// are not 16-byte aligned
+template <bool kVec>
+constexpr int kGBatch = kVec ? 40 : 20;
+
+// One warp per row, blockDim = 32 * warps. A lane takes the row's 16-byte
+// chunks lane, lane + 32, ... (4-byte values where the row does not start
+// 16-byte aligned), a batch of loads in flight before it compares
+// (rg_topk.cuh's selector for k <= KCAP).
+template <int KCAP, bool kVec>
+__global__ void __launch_bounds__(128, 4)
+row_topk_kernel(const float* __restrict__ x, float* __restrict__ out_v,
+                int* __restrict__ out_i, int n_q, int w, int k) {
+  constexpr int kN = kGBatch<kVec>;
+  const int warps = blockDim.x / 32;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x / 32) + warp;
+  const int row = blockIdx.x * warps + threadIdx.x / 32;
   if (row >= n_q) return;
-  float* xs = smem + (size_t)warp * w;
   const float* src = x + (long long)row * w;
-  for (int c = lane; c < w; c += 32) xs[c] = src[c];
-  __syncwarp();
-  for (int t = 0; t < k; ++t) {
-    float bv = -INFINITY;
-    int bi = INT32_MAX;
-    for (int c = lane; c < w; c += 32) {
-      const float v = xs[c];
-      if (v > bv) {  // ascending c: the first of equal values stays
-        bv = v;
-        bi = c;
-      }
-    }
+  rgk::TopK<KCAP> top;
+  top.init(k);
+  for (int b = 0; b < w; b += 32 * kN) {
+    float buf[kN];
+    if (kVec) {
+      const float4* src4 = reinterpret_cast<const float4*>(src + b);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFull, bv, off);
-      const int oi = __shfl_xor_sync(kFull, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
+      for (int u = 0; u < kN / 4; ++u) {
+        const float4 f = b + 4 * (lane + 32 * u) < w
+                             ? __ldg(src4 + lane + 32 * u)
+                             : make_float4(kNegInf, kNegInf, kNegInf, kNegInf);
+        buf[4 * u] = f.x;
+        buf[4 * u + 1] = f.y;
+        buf[4 * u + 2] = f.z;
+        buf[4 * u + 3] = f.w;
       }
+      top.take(buf,
+               [&](int u) { return b + 4 * (lane + 32 * (u / 4)) + u % 4; });
+    } else {
+#pragma unroll
+      for (int u = 0; u < kN; ++u) {
+        const int c = b + lane + 32 * u;
+        buf[u] = c < w ? __ldg(src + c) : kNegInf;
+      }
+      top.take(buf, [&](int u) { return b + lane + 32 * u; });
     }
-    const bool dead = !(bv > kNegInf);
-    if (lane == 0) {
-      out_v[(long long)row * k + t] = dead ? kNegInf : bv;
-      out_i[(long long)row * k + t] = dead ? 0 : bi;
-    }
-    if (!dead && (bi & 31) == lane) xs[bi] = kNegInf;
-    __syncwarp();
   }
+  top.write(out_v + (long long)row * k, out_i + (long long)row * k);
 }
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+template <int KCAP>
+cudaError_t launch_row_topk(bool vec, const float* x, float* out_v,
+                            int* out_i, int n_q, int w, int k, int warps,
+                            cudaStream_t s) {
+  auto kernel =
+      vec ? row_topk_kernel<KCAP, true> : row_topk_kernel<KCAP, false>;
+  kernel<<<(n_q + warps - 1) / warps, 32 * warps, 0, s>>>(x, out_v, out_i,
+                                                         n_q, w, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -411,21 +463,28 @@ int rg_bucket_max(const void* keys, const void* q, const void* valid,
 // Kernel E. x (R, Q) f32 row-major, every value >= -3e38. out_v / out_i are
 // (Q, k): each column's k largest values, descending, with their rows; ties
 // to the lowest row; (-3e38, 0) once a column has no value above -3e38 left.
-// n_split in {4, 8, 16, 32} warps share a column block's rows;
-// 32 * n_split * k * 8 bytes of shared memory must fit (k <= 128 at 4).
+// The plan (ops/bucket_topk.py::_column_topk_plan): kcap 32, 64 or 128, one
+// list of that length a warp, k <= kcap; `cols` columns per block, which
+// must be the kernel's 8.
 int rg_column_topk(const void* x, void* out_v, void* out_i, int n_r, int n_q,
-                   int k, int n_split, void* stream) {
+                   int k, int kcap, int cols, void* stream) {
   if (n_q == 0) return (int)cudaGetLastError();
-  const size_t smem = (sizeof(float) + sizeof(int)) * (size_t)k *
-                      kColsPerBlock * n_split;
-  cudaError_t err = allow_smem((const void*)column_topk_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kColsPerBlock, n_split);
-  column_topk_kernel<<<(n_q + kColsPerBlock - 1) / kColsPerBlock, block, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out_v),
-      static_cast<int*>(out_i), n_r, n_q, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > kcap || (kcap != 32 && kcap != 64 && kcap != 128) ||
+      cols != kECols || n_r < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = n_q % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const auto* xf = static_cast<const float*>(x);
+  auto* ov = static_cast<float*>(out_v);
+  auto* oi = static_cast<int*>(out_i);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kcap) {
+    case 32:
+      return (int)launch_column_topk<32>(vec, xf, ov, oi, n_r, n_q, k, s);
+    case 64:
+      return (int)launch_column_topk<64>(vec, xf, ov, oi, n_r, n_q, k, s);
+    default:
+      return (int)launch_column_topk<128>(vec, xf, ov, oi, n_r, n_q, k, s);
+  }
 }
 
 // Kernel F. assign (nb, P) int32 query ids, an id outside [0, Q) marks an
@@ -450,21 +509,31 @@ int rg_bucket_rescore(const void* assign, const void* q, const void* keys,
   return (int)cudaGetLastError();
 }
 
-// Kernel G. x (Q, W) f32 row-major, every value >= -3e38. out_v / out_i are
-// (Q, k): each row's k largest values, descending, with their columns; ties
-// to the lowest column; (-3e38, 0) once a row is exhausted. `warps` rows per
-// block; warps * W * 4 bytes of shared memory must fit.
+// Kernel G. x (Q, W) f32 row-major, every value >= -3e38, any W >= 1.
+// out_v / out_i are (Q, k): each row's k largest values, descending, with
+// their columns; ties to the lowest column; (-3e38, 0) once a row is
+// exhausted.
+// The plan (ops/bucket_topk.py::_row_topk_plan): kcap as for E, `warps`
+// rows per block (1 to 4).
 int rg_row_topk(const void* x, void* out_v, void* out_i, int n_q, int w,
-                int k, int warps, void* stream) {
+                int k, int kcap, int warps, void* stream) {
   if (n_q == 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * (size_t)warps * w;
-  cudaError_t err = allow_smem((const void*)row_topk_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  row_topk_kernel<<<(n_q + warps - 1) / warps, 32 * warps, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(out_v),
-      static_cast<int*>(out_i), n_q, w, k);
-  return (int)cudaGetLastError();
+  if (k < 1 || k > kcap || (kcap != 32 && kcap != 64 && kcap != 128) ||
+      warps < 1 || warps > 4 || w < 1)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = w % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const auto* xf = static_cast<const float*>(x);
+  auto* ov = static_cast<float*>(out_v);
+  auto* oi = static_cast<int*>(out_i);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kcap) {
+    case 32:
+      return (int)launch_row_topk<32>(vec, xf, ov, oi, n_q, w, k, warps, s);
+    case 64:
+      return (int)launch_row_topk<64>(vec, xf, ov, oi, n_q, w, k, warps, s);
+    default:
+      return (int)launch_row_topk<128>(vec, xf, ov, oi, n_q, w, k, warps, s);
+  }
 }
 
 }  // extern "C"

@@ -50,12 +50,12 @@ _SIGNATURES = {
     # keys, q, valid, out, R, Q, E, queries per block, buckets per block,
     # stream
     "rg_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, out_v, out_i, R, Q, k, row splits, stream
-    "rg_column_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out_v, out_i, R, Q, k, list length, columns per block, stream
+    "rg_column_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # assign, q, keys, valid, out, buckets, P, Q, R, E, stream
     "rg_bucket_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, out_v, out_i, Q, W, k, rows per block, stream
-    "rg_row_topk": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out_v, out_i, Q, W, k, list length, rows per block, stream
+    "rg_row_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out, total, partial, offsets, n, d, exclusive, bf16 input, stream
     "rg_prefix_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
     # rows per chunk of rg_prefix_sum's scratch (returned, not an error code)

@@ -42,6 +42,8 @@ it only for tensors on the CPU; for CUDA tensors it launches the kernel
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ragraph_tpu_torch import native
@@ -51,9 +53,8 @@ from ragraph_tpu_torch.ops.fused_retrieval import (_SMEM_RESERVED, _SMEM_SM,
 
 NEG_INF = -3.0e38
 LANE = 128    # bucket width
-MAX_K = 128   # kernels E and G keep their lists in shared memory
+MAX_K = 128   # kernels E and G hold at most 128 entries a warp
 MAX_E = 256
-_SMEM = 200_000   # shared memory a block of E or G may ask for, in bytes
 _Q_CHUNK = 4096   # queries per pass; the p_max capacity is per pass
 
 
@@ -96,6 +97,17 @@ def _check_qk(name: str, queries: torch.Tensor, keys: torch.Tensor) -> None:
 def _check_k(name: str, k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"{name} takes 1 <= k <= {MAX_K}, got k={k}")
+
+
+def _check_nonempty(name: str, what: str, x: torch.Tensor, dim: int) -> None:
+    if x.dim() == 2 and x.shape[dim] == 0:
+        raise ValueError(f"{name} takes at least one {what}, got "
+                         f"{tuple(x.shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---- phase 1: kernel D ------------------------------------------------------
@@ -152,8 +164,8 @@ def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
                       device=keys.device)
     if out.numel() == 0:
         return out
-    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    bq, _, per_range = _bucket_max_plan(n_q, n_r, keys.shape[1], sms)
+    bq, _, per_range = _bucket_max_plan(n_q, n_r, keys.shape[1],
+                                        _sms(keys.device))
     rc = native.lib().rg_bucket_max(
         keys.data_ptr(), queries.data_ptr(),
         valid.data_ptr() if valid is not None else None, out.data_ptr(),
@@ -204,6 +216,29 @@ def _topk_outputs(n_q: int, k: int, device):
             torch.empty((n_q, k), dtype=torch.int32, device=device))
 
 
+def _list_cap(k: int) -> int:
+    """The list length of kernels E and G for ``k``: one list of 32, 64 or
+    128 entries a warp."""
+    return next(c for c in (32, 64, 128) if k <= c)
+
+
+def _column_topk_plan(k: int) -> tuple[int, int]:
+    """Kernel E's plan: ``(kcap, cols)``. A block takes ``cols`` = 8
+    columns, one warp each (the only width the kernel is built for; it
+    rejects any other), so a refresh chunk's 2,048 columns give 256 blocks,
+    two for each of an H100's 132 SMs."""
+    return _list_cap(k), 8
+
+
+def _row_topk_plan(n_q: int, k: int, sms: int) -> tuple[int, int]:
+    """Kernel G's plan: ``(kcap, warps)``, one row a warp, four warps a
+    block unless that leaves SMs without a block."""
+    warps = 4
+    while warps > 1 and -(-n_q // warps) < sms:
+        warps //= 2
+    return _list_cap(k), warps
+
+
 def column_topk(x: torch.Tensor, k: int):
     """Exact top-``k`` over axis 0 of every column of ``x (R, Q)``.
 
@@ -212,6 +247,7 @@ def column_topk(x: torch.Tensor, k: int):
     slots hold ``(-3e38, 0)``. Values must be at least ``-3e38``.
     """
     _check_k("column_topk", k)
+    _check_nonempty("column_topk", "row", x, 0)
     if x.device.type == "cpu":
         return column_topk_plain(x, k)
     name = "column_topk"
@@ -221,10 +257,9 @@ def column_topk(x: torch.Tensor, k: int):
     vals, idx = _topk_outputs(n_q, k, x.device)
     if n_q == 0:
         return vals, idx
-    # warps that share a column block's rows: 32 lists of k entries each
-    n_split = next(s for s in (32, 16, 8, 4) if 32 * s * k * 8 <= _SMEM)
     rc = native.lib().rg_column_topk(x.data_ptr(), vals.data_ptr(),
-                                     idx.data_ptr(), n_r, n_q, k, n_split,
+                                     idx.data_ptr(), n_r, n_q, k,
+                                     *_column_topk_plan(k),
                                      native.stream_ptr(x))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
@@ -235,21 +270,19 @@ def row_topk(x: torch.Tensor, k: int):
     """Exact top-``k`` over axis 1 of ``x (Q, W)``: the contract of
     :func:`column_topk` along rows, ties to the lowest column."""
     _check_k("row_topk", k)
+    _check_nonempty("row_topk", "column", x, 1)
     if x.device.type == "cpu":
         return row_topk_plain(x, k)
     name = "row_topk"
     x = x.float().contiguous()
     _check_cuda(name, x=(x, torch.float32, 2))
     n_q, w = x.shape
-    if not 0 < w * 4 <= _SMEM:
-        raise ValueError(f"{name}: a row of {w} values does not fit the "
-                         f"kernel's shared memory ({_SMEM // 4} at most)")
     vals, idx = _topk_outputs(n_q, k, x.device)
     if n_q == 0:
         return vals, idx
-    warps = max(1, min(8, _SMEM // (4 * w)))
     rc = native.lib().rg_row_topk(x.data_ptr(), vals.data_ptr(),
-                                  idx.data_ptr(), n_q, w, k, warps,
+                                  idx.data_ptr(), n_q, w, k,
+                                  *_row_topk_plan(n_q, k, _sms(x.device)),
                                   native.stream_ptr(x))
     native.check(rc, name)
     native.LAUNCHES[name] += 1

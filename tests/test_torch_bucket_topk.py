@@ -41,17 +41,30 @@ def _assert_topk_close(s, i, want_s, want_i, live=None):
         assert np.abs(s[mism] - want_s[mism]).max() <= TOL
 
 
-@pytest.mark.parametrize("fn", ["column", "row"])
-def test_extraction_topk_matches_jax_with_ties(fn):
+@pytest.mark.parametrize("fn,k,shape", [
+    pytest.param("column", 4, (300, 130), id="column"),
+    pytest.param("row", 4, (70, 260), id="row"),
+    # k at and around the list lengths of the card's kernels (a warp list
+    # of 32, 64 or 128); column counts that are not a multiple of
+    # 32 (or of 4), rows of a width that is not a multiple of 4, and fewer
+    # rows than k
+    pytest.param("column", 16, (300, 130), id="column-k16"),
+    pytest.param("column", 17, (200, 77), id="column-k17"),
+    pytest.param("column", 32, (64, 45), id="column-k32"),
+    pytest.param("column", 33, (20, 40), id="column-k33-fewer-rows"),
+    pytest.param("row", 16, (40, 260), id="row-k16"),
+    pytest.param("row", 17, (33, 250), id="row-k17"),
+    pytest.param("row", 32, (10, 300), id="row-k32"),
+    pytest.param("row", 33, (12, 21), id="row-k33-narrow"),
+])
+def test_extraction_topk_matches_jax_with_ties(fn, k, shape):
     rng = np.random.default_rng(5)
-    k = 4
+    x = rng.integers(0, 7, size=shape).astype(np.float32)
     if fn == "column":
-        x = rng.integers(0, 7, size=(300, 130)).astype(np.float32)
         want = jbt.column_topk(jnp.asarray(x), k, block_q=128, interpret=True)
         got = tbt.column_topk(torch.from_numpy(x), k)
         ref = tbt.iterative_topk(torch.from_numpy(x.T.copy()), k)
     else:
-        x = rng.integers(0, 7, size=(70, 260)).astype(np.float32)
         want = jbt.row_topk(jnp.asarray(x), k, block_q=64, interpret=True)
         got = tbt.row_topk(torch.from_numpy(x), k)
         ref = tbt.iterative_topk(torch.from_numpy(x), k)
@@ -231,6 +244,40 @@ def test_bucket_max_plan_is_one_wave_over_every_bucket(n_q, n_r, e, sms):
         assert (bq, ranges, per_range) == (128, 16, 128)
 
 
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 32, 33, 128])
+@pytest.mark.parametrize("n_q", [2048, 130, 1, 2049, 4100])
+def test_column_topk_plan_is_one_wave_over_every_column(n_q, k):
+    """Kernel E's plan: the list length (one list of 32, 64 or 128 a warp,
+    the shortest that holds k) and the columns a block, which the kernel
+    launches ceil(Q / cols) blocks of: every column once, and at the
+    path's shape a block for each of an H100's 132 SMs."""
+    kcap, cols = tbt._column_topk_plan(k)
+    assert kcap in (32, 64, 128) and k <= kcap
+    assert kcap == 32 or kcap // 2 < k
+    assert cols == 8
+    blocks = -(-n_q // cols)
+    assert (blocks - 1) * cols < n_q <= blocks * cols
+    if n_q == 2048:
+        assert blocks >= 132
+
+
+@pytest.mark.parametrize("k", [1, 10, 16, 17, 32, 33, 128])
+@pytest.mark.parametrize("n_q,sms", [(2048, 132), (300, 132), (1, 132),
+                                     (9, 78), (4096, 114)])
+def test_row_topk_plan_covers_every_row(n_q, k, sms):
+    """Kernel G's plan: one warp a row, every row once, four warps a block
+    unless that leaves an SM without a block, and the register lists of
+    kernel E."""
+    kcap, warps = tbt._row_topk_plan(n_q, k, sms)
+    assert kcap == tbt._column_topk_plan(k)[0]
+    assert warps in (1, 2, 4)
+    blocks = -(-n_q // warps)
+    assert (blocks - 1) * warps < n_q <= blocks * warps
+    assert blocks >= sms or warps == 1
+    if n_q == 2048:
+        assert (warps, blocks) == (4, 512)
+
+
 CASES = {
     # name: (Q, R, E, k, n_valid, identical queries, p_max)
     "multiple-of-block": (32, 2048, 64, 10, None, False, 32),
@@ -311,6 +358,20 @@ def test_cosine_topk_bucket_matches_jax(masked, monkeypatch):
                                10, recall_target=1.0, **kw)
     np.testing.assert_array_equal(s2.numpy(), s.numpy())
     np.testing.assert_array_equal(i2.numpy(), i.numpy())
+
+
+@pytest.mark.parametrize("fn,shape", [("column", (0, 5)),
+                                      ("row", (5, 0))])
+def test_topk_rejects_an_empty_axis(fn, shape):
+    """E and G select along an axis with at least one value: an empty one
+    is a ValueError on every device, not a row of exhausted slots."""
+    f = tbt.column_topk if fn == "column" else tbt.row_topk
+    with pytest.raises(ValueError, match="at least one"):
+        f(torch.zeros(shape), 1)
+    # the other axis may be empty: no columns (rows) to select for
+    other = (shape[1], shape[0])
+    v, i = f(torch.zeros(other), 1)
+    assert v.shape == (0, 1) and i.shape == (0, 1)
 
 
 def test_limits_and_exports():
