@@ -9,9 +9,13 @@ Phases (any failure exits non-zero):
    the tensor-core instructions (``HGMMA``/``HMMA``) in the machine code of
    kernels C, D, F and J (``cuobjdump -sass``), and require no stack frame
    and no spill in any of kernels E's and G's instantiations (their top-k
-   lists live in registers; ``-Xptxas -v``);
+   lists live in registers; ``-Xptxas -v``) nor in the walk that kernels A
+   and K run at the main path's width;
 2. hold each of the twelve kernels against its plain PyTorch version on the
-   card, at its path's shapes and at ragged small shapes; kernel D's maxima
+   card, at its path's shapes and at ragged small shapes (kernels A and K
+   also on a skewed graph of the same size, phase 2b, with rows of up to
+   about 37,000 edges, which their walk cuts into pieces; K bit for bit
+   kernel A, and two calls of either giving the same bits); kernel D's maxima
    against the maxima of kernel F's scores, bit for bit; the bucket family
    against a dense reference, its top-1 bit for bit kernel D's largest
    maximum; the three probe kernels also against their neighbours (J
@@ -48,8 +52,10 @@ Phases (any failure exits non-zero):
    finite and fall, every gradient finite and non-zero, and the launches
    per step as counted;
 7. time each kernel, its plain version and one PyTorch library call that
-   computes the same function, beside its bound (E and G also by device
-   time alone, and at k = 20 and 50);
+   computes the same function, beside its bound, by a loop of calls and by
+   device time alone; A's parts (the cast, the kernel, the backward) and K
+   on the main path's graph and on the skewed one; E and G at k = 20 and
+   50;
 8. time a pretrain step and a finetune step (forward, backward, optimizer
    apart) beside the same step on plain PyTorch ops;
 9. the static node pipeline at full width (3,000 synthetic graphs written
@@ -130,23 +136,12 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
 
 
 def device_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``, its kernels and copies: the
-    stream is held by a sleeping kernel while the host queues ``reps``
-    calls behind the start event, so the events time the device alone.
+    """Device time of one call of ``fn``: the stream is held while the
+    calls are queued (``ragraph_tpu_torch.bench.timing.device_ms``).
     ``cuda_ms`` instead also counts the host's time between launches, which
     sets the pace of a loop of calls shorter than their Python wrappers."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)    # about 25 ms: longer than the queueing
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from ragraph_tpu_torch.bench.timing import device_ms as timed
+    return timed(fn, reps)
 
 
 def StageTimer():
@@ -232,11 +227,15 @@ def segsum_checks(rng, dev, n, e, d, hub):
     idx, ip = t(send, torch.int32), t(indptr, torch.int32)
     args = (w, t(w_np[perm], torch.float32), idx, ip,
             t(recv[perm], torch.int32), t(sip, torch.int32))
-    tag = f"n={n} E={e} D={d}"
+    plan = cs.walk_plan(ip)
+    tag = (f"n={n} E={e} D={d} longest row {int(np.diff(indptr).max())}, "
+           f"{len(plan.pieces)} pieces")
     for bf16 in (True, False):
         got = cs.gather_scale_segsum(table, *args, bf16=bf16)
         ref = cs.gather_scale_segsum_plain(table, w, idx, ip, bf16)
         check_close(f"A bf16={bf16} {tag}", got, ref, TOL_SEGSUM)
+        check_same(f"A bf16={bf16} {tag}, a second call", got,
+                   cs.gather_scale_segsum(table, *args, bf16=bf16))
     # backward: the same kernel on the sender-order arrays
     x = table.clone().requires_grad_(True)
     ct = t(rng.normal(size=(n, d)), torch.float32)
@@ -247,6 +246,124 @@ def segsum_checks(rng, dev, n, e, d, hub):
     msgs = t(rng.normal(size=(e, d)), torch.float32)
     got = cs.sorted_segment_sum_grad(msgs, ip, t(recv, torch.int32))
     check_close(f"B {tag}", got, cs.segment_sum_plain(msgs, ip), TOL_SEGSUM)
+
+
+def segsum_f64(table, w, idx, indptr, bf16):
+    """Kernel A's plain version (``gather_scale_segsum_plain``: the same
+    bf16-rounded rows and weights) with its terms summed in float64."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    t, ww = table.float(), w.float()
+    if bf16:
+        t = t.to(torch.bfloat16).float()
+        ww = ww.to(torch.bfloat16).float()
+    out = torch.zeros(len(indptr) - 1, t.shape[1], dtype=torch.float64,
+                      device=t.device)
+    return out.index_add_(0, cs._segment_ids(indptr, len(idx)),
+                          t[idx.long()].double() * ww.double()[:, None])
+
+
+def phase_skewed(rng, dev):
+    """Kernels A and K on a graph with hub rows: N = 262,144 rows, 2^21
+    edges, receivers and senders each drawn with probability proportional
+    to (rank + 1)^-0.8 (``bench.csr_walk.skewed_graph``; the largest row
+    about 37,000 edges). A's forward (bf16 and f32) and backward (the same
+    op in sender order) and K, with the parity split and with both weights,
+    against the plain versions' terms summed in float64 at TOL_SEGSUM (the
+    plain versions' own f32 ``index_add_`` strays by about 1e-3 over a row
+    of 37,000 terms, printed beside); K with the parity split equal to A bit
+    for bit; two calls giving the same bits; empty rows zero rows."""
+    import torch
+
+    from ragraph_tpu_torch.bench import csr_walk
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    from ragraph_tpu_torch.ops import probes as pr
+    t0 = time.perf_counter()
+    print("phase 2b: kernels A and K on a skewed graph", flush=True)
+    sk = {k: torch.from_numpy(v).to(dev) for k, v in
+          csr_walk.skewed_graph(rng).items()}
+    deg = {side: csr_walk.degree_summary(sk[f"{side}_indptr"])
+           for side in ("recv", "send")}
+    plans = {side: cs.walk_plan(sk[f"{side}_indptr"])
+             for side in ("recv", "send")}
+    for side, plan in plans.items():
+        deg[side]["pieces"] = len(plan.pieces)
+    print(json.dumps({"skewed_graph_degrees": deg}), flush=True)
+    if not all(deg[side]["long_rows"] and deg[side]["pieces"]
+               for side in deg):
+        fail("the skewed graph has no row that the walk cuts into pieces")
+    gen = torch.Generator(dev).manual_seed(SEED + 40)
+    n = len(sk["recv_indptr"]) - 1
+    table = torch.randn(n, D, generator=gen, device=dev)
+    ct = torch.randn(n, D, generator=gen, device=dev)
+    args = (sk["w"], sk["w_send"], sk["senders"], sk["recv_indptr"],
+            sk["recv_of_send"], sk["send_indptr"])
+    fwd = (sk["w"], sk["senders"], sk["recv_indptr"])
+    bwd = (sk["w_send"], sk["recv_of_send"], sk["send_indptr"])
+    empty = sk["recv_indptr"][1:] == sk["recv_indptr"][:-1]
+
+    def held(name, got, f64, f32_plain):
+        err = check_close(name, got, f64.float(), TOL_SEGSUM)
+        print(f"    the plain version's f32 sums against float64: "
+              f"{float((f32_plain - f64).abs().max()):.3e}", flush=True)
+        return err
+
+    errs = {}
+    planned = {"recv_plan": plans["recv"], "send_plan": plans["send"]}
+    for bf16 in (True, False):
+        x = table.clone().requires_grad_(True)
+        got = cs.gather_scale_segsum(x, *args, bf16=bf16, **planned)
+        errs[f"A_bf16={bf16}"] = held(
+            f"A skewed bf16={bf16}", got.detach(),
+            segsum_f64(table, *fwd, bf16),
+            cs.gather_scale_segsum_plain(table, *fwd, bf16))
+        check_same(f"A skewed bf16={bf16}, a second call", got.detach(),
+                   cs.gather_scale_segsum(table, *args, bf16=bf16, **planned))
+        if not bool((got.detach()[empty] == 0).all()):
+            fail("A skewed: an empty row is not a zero row")
+        # the backward: the same op in sender order on the cotangent (with
+        # bf16 the cotangent is rounded too, as in the JAX custom VJP)
+        got.backward(ct)
+        errs[f"A_backward_bf16={bf16}"] = held(
+            f"A skewed backward bf16={bf16}", x.grad,
+            segsum_f64(ct, *bwd, bf16),
+            cs.gather_scale_segsum_plain(ct, *bwd, bf16))
+        x2 = table.clone().requires_grad_(True)
+        cs.gather_scale_segsum(x2, *args, bf16=bf16, **planned).backward(ct)
+        check_same(f"A skewed backward bf16={bf16}, a second call", x.grad,
+                   x2.grad)
+        del x, x2, got
+    tp = pr.pack_table(table)
+    par = (sk["senders"] & 1).float()
+    half = (sk["senders"] >> 1).contiguous()
+    k_args = (tp, sk["w"] * (1 - par), sk["w"] * par, half,
+              sk["recv_indptr"])
+    got = pr.packed_table_segsum(*k_args, plans["recv"])
+    errs["K"] = held("K skewed", got, segsum_f64(table, *fwd, True),
+                     pr.packed_table_segsum_plain(*k_args))
+    check_same("K skewed against kernel A", got,
+               cs._csr_gather_scale(table, *fwd, True, plans["recv"]))
+    check_same("K skewed, a second call (making its own plan)", got,
+               pr.packed_table_segsum(*k_args))
+    if not bool((got[empty] == 0).all()):
+        fail("K skewed: an empty row is not a zero row")
+    both = (tp, sk["w"], 1 - sk["w"], half, sk["recv_indptr"])
+    rows = tp.float()[half.long()].double()
+    wl = sk["w"].to(torch.bfloat16).double()[:, None]
+    wh = (1 - sk["w"]).to(torch.bfloat16).double()[:, None]
+    f64 = torch.zeros(n, D, dtype=torch.float64, device=dev).index_add_(
+        0, cs._segment_ids(sk["recv_indptr"], len(half)),
+        rows[:, :D] * wl + rows[:, D:] * wh)
+    del rows
+    held("K skewed both weights", pr.packed_table_segsum(*both), f64,
+         pr.packed_table_segsum_plain(*both))
+    del f64, got
+    torch.cuda.empty_cache()
+    print(json.dumps({"skewed_max_abs_err": errs,
+                      "skewed_phase_s": time.perf_counter() - t0}),
+          flush=True)
+    return sk
 
 
 def pack_half_split(msgs, block):
@@ -757,7 +874,8 @@ def j_kernel_checks(gen, dev, kh, qh):
 def probe_kernel_checks(rng, dev, inputs):
     """Kernels J, K and L against their plain versions at the scripts' shapes
     and at ragged small shapes; J against kernels F and D
-    (:func:`j_kernel_checks`); K against kernel A; L at tolerance 0."""
+    (:func:`j_kernel_checks`); K against kernel A bit for bit; L at
+    tolerance 0."""
     import torch
 
     from ragraph_tpu_torch.ops import csr_segment as cs
@@ -772,8 +890,9 @@ def probe_kernel_checks(rng, dev, inputs):
     errs["J"] = j_kernel_checks(gen, dev, kh, qh)
 
     def k_checks(tag, table, w, send, indptr):
-        """K with the parity split against kernel A on (table, w, send) and
-        against its plain version; then with both weights non-zero."""
+        """K with the parity split against its plain version and against
+        kernel A on (table, w, send), bit for bit; then with both weights
+        non-zero."""
         tp = pr.pack_table(table)
         par = (send & 1).float()
         half = (send >> 1).contiguous()
@@ -782,13 +901,10 @@ def probe_kernel_checks(rng, dev, inputs):
         torch.cuda.synchronize()
         err = check_close(f"K {tag}", got, pr.packed_table_segsum_plain(*args),
                           TOL_SEGSUM)
-        a = cs._csr_gather_scale(table, w, send, indptr, True)
-        diff = float((got - a).abs().max()) if got.numel() else 0.0
-        scale = float(a.abs().max()) if a.numel() else 0.0
-        print(f"  K {tag} against kernel A: max_abs_diff={diff:.3e} "
-              f"(largest output {scale:.3e}, limit 5e-4 of it)", flush=True)
-        if diff > 5e-4 * scale:
-            fail(f"K {tag} disagrees with kernel A")
+        # one walk and one order of sums: K with the parity split is kernel
+        # A on (table, w, send) to the bit
+        diff = check_same(f"K {tag} against kernel A", got,
+                          cs._csr_gather_scale(table, w, send, indptr, True))
         empty = indptr[1:] == indptr[:-1]
         if not bool((got[empty] == 0).all()):
             fail(f"K {tag}: an empty segment is not a zero row")
@@ -869,6 +985,8 @@ def phase_kernel_checks(rng, dev, graph, probes):
         ref = cs.gather_scale_segsum_plain(table, w, g.senders,
                                            g.recv_indptr, bf16)
         err = check_close(f"A bf16={bf16} main shape", got, ref, TOL_SEGSUM)
+        check_same(f"A bf16={bf16} main shape, a second call", got,
+                   cs.gather_scale_segsum(table, *args, bf16=bf16))
         if bf16:
             errs["A"] = err
     msgs = table[g.senders.long()] * g.edge_norm[:, None]
@@ -959,11 +1077,14 @@ def phase_sass(lib_path):
 
 
 def phase_register_lists(log):
-    """Kernels E and G keep their top-k lists in registers: in the
-    ``-Xptxas -v`` build log every instantiation of their kernels (list
-    lengths 32, 64, 128, two load widths: six each) must show no stack
-    frame and no spill."""
+    """Kernels E and G keep their top-k lists in registers, and kernels A
+    and K their row loads: in the ``-Xptxas -v`` build log every
+    instantiation of E's and G's kernels (list lengths 32, 64, 128, two
+    load widths: six each) and the walk of a 64-wide bf16 row that A and K
+    run on the main path must show no stack frame and no spill."""
     import re
+    walks = (r"walk_kernelINS_9TableRowsI13__nv_bfloat16Li16EEELi8ELi1E",
+             r"walk_kernelINS_10PackedRowsILi16EEELi8ELi1E")
     found, func = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -972,17 +1093,18 @@ def phase_register_lists(log):
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        if m and func and re.search(r"(column|row)_topk_kernelILi", func):
+        if m and func and (re.search(r"(column|row)_topk_kernelILi", func)
+                           or any(re.search(w, func) for w in walks)):
             found[func] = tuple(int(g) for g in m.groups())
         func = None
     for f, (frame, st, ld) in found.items():
         print(f"  ptxas {f}: {frame} bytes stack frame, {st} bytes spill "
               f"stores, {ld} bytes spill loads", flush=True)
-    if len(found) != 12:
-        fail(f"kernels E and G: {len(found)} of 12 instantiations found in "
-             f"the ptxas log")
+    if len(found) != 14:
+        fail(f"kernels E, G, A and K: {len(found)} of 14 instantiations "
+             f"found in the ptxas log")
     if any(any(v) for v in found.values()):
-        fail("a register-list kernel of E or G has a stack frame or spills")
+        fail("a kernel of E, G, A or K has a stack frame or spills")
 
 
 def phase_main_path(dev, ds, graph, params):
@@ -1413,7 +1535,8 @@ def phase_ops_path(dev, graph):
                    lambda: cs.csr_segment_sum(msgs, g.recv_indptr))
     fused = timer("kernel_A_same_edges", lambda: cs.gather_scale_segsum(
         table, w, w_send, g.senders, g.recv_indptr, g.recv_of_send,
-        g.send_indptr, bf16=True))
+        g.send_indptr, bf16=True, recv_plan=g.recv_plan,
+        send_plan=g.send_plan))
     scale = float(torch.cumsum(msgs.double(), 0).abs().max())
     err = float((by_prefix - direct).abs().max())
     tol = TOL_PREFIX_DIFF * scale
@@ -1911,7 +2034,7 @@ def phase_node_path(dev):
     return c_err
 
 
-def phase_timing(dev, graph, errs, launches, probes):
+def phase_timing(dev, graph, errs, launches, probes, skewed):
     import torch
 
     from ragraph_tpu_torch.ops import csr_segment as cs
@@ -1935,10 +2058,13 @@ def phase_timing(dev, graph, errs, launches, probes):
     w_send = g.edge_norm_send * 0.5 + g.time_norm_send * 0.5
     args = (w, w_send, g.senders, g.recv_indptr, g.recv_of_send,
             g.send_indptr)
+    planned = {"recv_plan": g.recv_plan, "send_plan": g.send_plan}
     kernels = []
 
-    # A: gather_scale_segsum, bf16 (the main path's setting)
-    a_ms = cuda_ms(lambda: cs.gather_scale_segsum(table, *args, bf16=True))
+    # A: gather_scale_segsum, bf16 (the main path's setting), with the
+    # graph's walk plans as the model hands them in
+    a_ms = cuda_ms(lambda: cs.gather_scale_segsum(table, *args, bf16=True,
+                                                  **planned))
     a_plain = cuda_ms(lambda: cs.gather_scale_segsum_plain(
         table, w, g.senders, g.recv_indptr, True), reps=5)
     tb = table.to(torch.bfloat16).float()
@@ -1959,8 +2085,28 @@ def phase_timing(dev, graph, errs, launches, probes):
         bound_ms=max(a_bytes / HBM_BYTES_PER_MS, a_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if a_bytes / HBM_BYTES_PER_MS
         >= a_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=a_lib))
+        library_ms=a_lib,
+        device_ms=device_ms(lambda: cs.gather_scale_segsum(
+            table, *args, bf16=True, **planned)),
+        library_device_ms=device_ms(lambda: torch.sparse.mm(csr, tb), 5)))
     del csr, tb
+    # A's parts (the cast, the kernel, the backward) and K on the same
+    # edges, by device time, on this graph and on the skewed one; the rows
+    # each lane group gathers from L2
+    from ragraph_tpu_torch.bench import csr_walk
+    uni = {"senders": g.senders, "recv_indptr": g.recv_indptr, "w": w,
+           "recv_of_send": g.recv_of_send, "send_indptr": g.send_indptr,
+           "w_send": w_send}
+    walk_ms = {name: csr_walk.time_graph(arrs, D, gen, dev)
+               for name, arrs in (("uniform", uni), ("skewed", skewed))}
+    walk_ms["l2_row_bytes"] = {"A": 2 * D * e, "K": 4 * D * e}
+    print(json.dumps({"csr_walk_device_ms": walk_ms}), flush=True)
+    for name, rec in walk_ms.items():
+        if name != "l2_row_bytes" and not (rec["K_equals_A"]
+                                           and rec["A_repeat_equal"]):
+            fail(f"kernels A and K on the {name} graph: K equal to A "
+                 f"{rec['K_equals_A']}, A repeated {rec['A_repeat_equal']}")
+    del uni
 
     # B: sorted_segment_sum_grad on pre-scaled f32 messages
     msgs = table[g.senders.long()] * g.edge_norm[:, None]
@@ -1983,7 +2129,11 @@ def phase_timing(dev, graph, errs, launches, probes):
         bound_ms=max(b_bytes / HBM_BYTES_PER_MS, b_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if b_bytes / HBM_BYTES_PER_MS
         >= b_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=b_lib))
+        library_ms=b_lib,
+        device_ms=device_ms(lambda: cs.sorted_segment_sum_grad(
+            msgs, g.recv_indptr, g.receivers)),
+        library_device_ms=device_ms(lambda: torch.segment_reduce(
+            msgs, "sum", lengths=lengths, axis=0), 5)))
     del msgs
 
     # H: the exclusive prefix of the 2^21 x 64 f32 messages, as
@@ -2006,7 +2156,9 @@ def phase_timing(dev, graph, errs, launches, probes):
         bound_ms=max(h_bytes / HBM_BYTES_PER_MS, h_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if h_bytes / HBM_BYTES_PER_MS
         >= h_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=h_lib))
+        library_ms=h_lib,
+        device_ms=device_ms(lambda: ps.prefix_sum(msgs, True)),
+        library_device_ms=device_ms(lambda: torch.cumsum(msgs, 0), 2)))
     ip = g.recv_indptr
     detail_hi = {
         "H_sorted_segment_sum_with_boundary_difference": cuda_ms(
@@ -2035,7 +2187,9 @@ def phase_timing(dev, graph, errs, launches, probes):
         bound_ms=max(i_bytes / HBM_BYTES_PER_MS, i_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if i_bytes / HBM_BYTES_PER_MS
         >= i_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=None))
+        library_ms=None,
+        device_ms=device_ms(lambda: cs.segsum_packed2_w(msgs2, w, ip, e)),
+        library_device_ms=None))
     detail_hi.update({
         "I_bf16_rows": cuda_ms(lambda m=msgs2.to(torch.bfloat16):
                                cs.segsum_packed2_w(m, w, ip, e)),
@@ -2060,7 +2214,6 @@ def phase_timing(dev, graph, errs, launches, probes):
     # epilogue and the merge launch left out
     from ragraph_tpu_torch.ops import probes as pr
     j_at_c = cuda_ms(lambda: pr.matmul_probe(kh, qh, 0), reps=10)
-    del scores
     c_bytes = 2 * CHUNK * D + 2 * n * D + 8 * CHUNK * 10
     c_ops = 2 * CHUNK * n * D
     kernels.append(dict(
@@ -2072,7 +2225,11 @@ def phase_timing(dev, graph, errs, launches, probes):
         bound_ms=max(c_bytes / HBM_BYTES_PER_MS, c_ops / BF16_FLOP_PER_MS),
         bound_by="bytes" if c_bytes / HBM_BYTES_PER_MS
         >= c_ops / BF16_FLOP_PER_MS else "operations",
-        library_ms=c_mm + c_topk))
+        library_ms=c_mm + c_topk,
+        device_ms=device_ms(lambda: fused_cosine_topk(q, keys, 10)),
+        library_device_ms=device_ms(lambda: torch.matmul(qb, kb.T), 5)
+        + device_ms(lambda: torch.topk(scores, 10, dim=1), 5)))
+    del scores
     detail = {"C_library_f32_matmul": c_mm, "C_library_topk": c_topk,
               "C_bf16_matmul_bf16_out": c_mm_bf16,
               "J_at_C_shape_E64": j_at_c,
@@ -2133,9 +2290,9 @@ def phase_timing(dev, graph, errs, launches, probes):
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if library is None else cuda_ms(library,
                                                             reps=5)))
-        if library is not None:     # E and G: shorter than their wrappers
-            kernels[-1].update(device_ms=device_ms(kernel),
-                               library_device_ms=device_ms(library))
+        kernels[-1].update(
+            device_ms=device_ms(kernel),
+            library_device_ms=None if library is None else device_ms(library))
     # E and G at k = 20 and 50 on inputs of the path's shapes (E's input
     # does not depend on k; G's is each k's own candidate matrix), each
     # beside torch.topk on the same input
@@ -2187,6 +2344,7 @@ def phase_timing(dev, graph, errs, launches, probes):
     par = (kin["send"] & 1).float()
     k_args = (tp, kin["w"] * (1 - par), kin["w"] * par,
               (kin["send"] >> 1).contiguous(), kin["indptr"])
+    k_plan = cs.walk_plan(kin["indptr"])
     n_k, d_k = kin["table"].shape
     e_k = kin["send"].shape[0]
     # K's library call: the packed table read as its (N, D) rows, times a CSR
@@ -2220,7 +2378,7 @@ def phase_timing(dev, graph, errs, launches, probes):
             2 * r_j * q_j * e_j, BF16_FLOP_PER_MS),
         "packed_table_segsum": (
             "K", "experiments/packed_table_gather_bench.py:46",
-            lambda: pr.packed_table_segsum(*k_args),
+            lambda: pr.packed_table_segsum(*k_args, k_plan),
             lambda: pr.packed_table_segsum_plain(*k_args),
             lambda: torch.sparse.mm(k_csr, k_dense),
             2 * n_k * d_k + 4 * e_k + 8 * e_k + 4 * (n_k + 1)
@@ -2245,10 +2403,14 @@ def phase_timing(dev, graph, errs, launches, probes):
             bound_ms=max(by_bytes, by_ops),
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if library is None else cuda_ms(library,
-                                                            reps=5)))
+                                                            reps=5),
+            device_ms=device_ms(kernel),
+            library_device_ms=None if library is None else device_ms(
+                library, 5)))
     detail.update({
         "K_kernel_A_same_edges": cuda_ms(lambda: cs._csr_gather_scale(
-            kin["table"], kin["w"], kin["send"], kin["indptr"], True)),
+            kin["table"], kin["w"], kin["send"], kin["indptr"], True,
+            k_plan)),
         "K_max_abs_diff_to_kernel_A": errs["K_vs_A"],
         "K_max_abs_diff_to_library": k_lib_diff,
         "J_kernel_D_same_inputs": cuda_ms(lambda: bt.bucket_max(jk, jq),
@@ -2470,6 +2632,7 @@ def main() -> int:
 
     probes = probe_inputs(dev)
     errs = phase_kernel_checks(rng, dev, graph, probes)
+    skewed = phase_skewed(rng, dev)
     launches, keys = phase_main_path(dev, ds, graph, params)
     launches.update(phase_exact_tier(dev, params, keys))
     phase_huge_k(dev, graph, params)
@@ -2486,7 +2649,7 @@ def main() -> int:
     trained = phase_training(dev, train, ds, graph)
     del train
     errs["C"] = max(errs["C"], phase_node_path(dev))
-    kernels = phase_timing(dev, graph, errs, launches, probes)
+    kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
     phase_step_timing(dev, trained)
     if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):
         fail(f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")

@@ -40,6 +40,26 @@ def timed_ms(fn, reps: int = 20, warmup: int = 2, device="cuda") -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``, its kernels and copies: the
+    stream is held by a sleeping kernel while the host queues ``reps``
+    calls behind the start event, so the events time the device alone. A
+    loop of calls between two events (:func:`timed_ms`) also counts the
+    host's time between launches, which sets the pace of calls shorter than
+    their Python wrappers. ``fn`` must not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)    # about 25 ms: longer than the queueing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 class StageTimer:
     """Per-stage milliseconds between CUDA events recorded on an idle
     stream before a stage and after it (host clock on the CPU); a stage's

@@ -15,40 +15,43 @@
 // accumulated in f32. For I the message of edge e lies in a half-split
 // packed (n/2, 2d) matrix: packed row (e / 2B) * B + e % B, half
 // (e / B) % 2, which read as an (n, d) matrix is row 2 * packed row + half:
-// an address computed from e, so I is A's walk with no index array. With
+// an address computed from e, so I is a walk with no index array. With
 // bf16 rows, A and I also round w to bf16, so each product is exact in f32
 // as in the TPU kernel's bf16 matmul.
 //
-// What bounds it on an H100: bytes. Per output row the work is one multiply-
-// add per gathered element, far below the 295 operations per byte at which
-// the tensor cores would be the limit. The least traffic is each input read
-// once and the output written once (for A at 2^21 edges x 64: ~152 MB, about
-// 0.045 ms at 3.35 TB/s); the row gathers touch E*D elements, which at the
-// main-path shape is a 33.5 MB bf16 table that fits in the 50 MB L2.
+// What bounds them on an H100: bytes. Per output row the work is one
+// multiply-add per gathered element, far below the 295 operations per byte
+// at which the tensor cores would be the limit. The bound counts each input
+// read once and the output written once: for A at 2^21 edges x 64 (the f32
+// table the wrapper is handed, ids, weights, indptr, the f32 output) ~152 MB,
+// about 0.045 ms at 3.35 TB/s. The gathers read more than that, from L2:
+// 2^21 rows of 128 bytes, 268 MB, from a 33.5 MB bf16 table that fits in the
+// 50 MB L2. So A is held by L2 bandwidth and by the latency of its
+// dependent loads (indptr, then ids, then rows), not by device memory.
 //
-// Design: the TPU kernel formed a prefix sum with triangular MXU matmuls and
-// took differences at the segment bounds, because the TPU has no fast
-// scatter. On the GPU the CSR form needs neither: one warp owns one output
-// row, its lanes own consecutive pairs of columns (8-byte f32 or 4-byte bf16
-// loads, so a 64-wide row is one coalesced access per edge), and it walks the
-// row's edges in order. The warp loads 32 edge ids and weights at once and
-// broadcasts them with shuffles. Sums are taken directly, in edge order:
-// deterministic, no atomics, and without the cancellation error of the
-// prefix difference. Element offsets are 64-bit, since E*D passes 2^31 at
-// 100M edges.
+// A runs the row walk of rg_csr.cuh, which kernel K shares: groups of 8
+// lanes a 64-wide bf16 row, one 16-byte load a lane and edge, 8 short rows a
+// group walked as one stream of batches whose next ids load before this
+// batch's rows, 4 row loads a lane in flight, 4 blocks of 256 threads an SM;
+// rows of more than hub_edges edges cut into pieces, whose partial sums add
+// in a fixed order.
+//
+// B and I walk one warp per output row: its lanes own consecutive pairs of
+// columns (8-byte f32 or 4-byte bf16 loads, so a 64-wide row is one
+// coalesced access per edge), and it walks the row's edges in order, 32 at a
+// time, handing each edge's row address to the lanes with shuffles. All sums
+// are taken directly, in edge order: deterministic, no atomics, and without
+// the cancellation error of the prefix difference. Element offsets are
+// 64-bit, since E*D passes 2^31 at 100M edges.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rg_csr.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;           // rows per block
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+using rgc::round_bf16;
 
 __device__ __forceinline__ float2 load_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -60,15 +63,14 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 
 // Where the row of edge e comes from.
 constexpr int kPlain = 0;   // B: src[e], unscaled
-constexpr int kGather = 1;  // A: src[idx[e]] scaled by w[e]
-constexpr int kPacked = 2;  // I: e's half-split packed row, scaled by w[e]
+constexpr int kPacked = 1;  // I: e's half-split packed row, scaled by w[e]
 
 // CH = number of 64-column chunks a lane covers (d <= 64 * CH). T is the
 // element type of src. `pack_block` is I's B (rows per packed half).
 template <int CH, int MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
-                const int* __restrict__ idx, const int* __restrict__ indptr,
+                const int* __restrict__ indptr,
                 float* __restrict__ out, long long n_rows, int d,
                 bool round_w, int pack_block) {
   constexpr bool SCALE = MODE != kPlain;
@@ -87,9 +89,7 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
     int my_src = 0;
     float my_w = 0.f;
     if (e < end) {
-      if (MODE == kGather) {
-        my_src = idx[e];
-      } else if (MODE == kPacked) {
+      if (MODE == kPacked) {
         const int b = pack_block;
         my_src = 2 * ((e / (2 * b)) * b + e % b) + (e / b) % 2;
       } else {
@@ -132,8 +132,8 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
 }
 
 template <int MODE, typename T>
-cudaError_t launch(const T* src, const float* w, const int* idx,
-                   const int* indptr, float* out, long long n_rows, int d,
+cudaError_t launch(const T* src, const float* w, const int* indptr,
+                   float* out, long long n_rows, int d,
                    bool round_w, cudaStream_t stream, int pack_block = 0) {
   if (n_rows == 0) return cudaGetLastError();
   const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
@@ -141,13 +141,13 @@ cudaError_t launch(const T* src, const float* w, const int* idx,
   const int ch = (d + 63) / 64;
   switch (ch) {
     case 1: csr_rows_kernel<1, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
     case 2: csr_rows_kernel<2, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
     case 3: case 4: csr_rows_kernel<4, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
     default: csr_rows_kernel<8, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, idx, indptr, out, n_rows, d, round_w, pack_block); break;
+        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
   }
   return cudaGetLastError();
 }
@@ -156,31 +156,48 @@ cudaError_t launch(const T* src, const float* w, const int* idx,
 
 extern "C" {
 
-// Kernel A. `table` is (N, d) f32, or bf16 when `bf16_table` is set (then w
-// is rounded to bf16 too); d even, d <= 512. out is (n_rows, d) f32.
+// Kernel A. table (N, d): bf16 when bf16_table, and then w (E,) f32 is
+// rounded to bf16 too, else f32; idx (E,) int32; indptr (n_rows + 1,) int32;
+// d even, d <= 512. The walk plan (hub_edges ... n_pieces) is
+// ops/csr_segment.py::walk_plan(indptr); partial is (n_pieces, d) f32
+// scratch. out is (n_rows, d) f32.
 int rg_csr_gather_scale_segsum(const void* table, const void* w,
                                const void* idx, const void* indptr, void* out,
                                long long n_rows, int d, int bf16_table,
-                               void* stream) {
+                               int hub_edges, const void* long_rows,
+                               const void* piece_ptr, long long n_long,
+                               const void* pieces, long long n_pieces,
+                               void* partial, void* stream) {
+  const rgc::Plan plan = rgc::make_plan(hub_edges, long_rows, piece_ptr,
+                                        n_long, pieces, n_pieces, partial);
+  const char* t = static_cast<const char*>(table);
+  const int* ix = static_cast<const int*>(idx);
+  const float* ww = static_cast<const float*>(w);
+  const int* ip = static_cast<const int*>(indptr);
+  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_table)
-    return (int)launch<kGather>(static_cast<const __nv_bfloat16*>(table),
-                             static_cast<const float*>(w),
-                             static_cast<const int*>(idx),
-                             static_cast<const int*>(indptr),
-                             static_cast<float*>(out), n_rows, d, true, s);
-  return (int)launch<kGather>(static_cast<const float*>(table),
-                           static_cast<const float*>(w),
-                           static_cast<const int*>(idx),
-                           static_cast<const int*>(indptr),
-                           static_cast<float*>(out), n_rows, d, false, s);
+  const long long rb = (long long)d * (bf16_table ? 2 : 4);  // row bytes
+  if (bf16_table) {
+    if (rb % 16 == 0)
+      return (int)rgc::launch_walk(
+          rgc::TableRows<__nv_bfloat16, 16>{t, rb, ix, ww, true}, ip, o,
+          n_rows, d, (int)(rb / 16), plan, s);
+    return (int)rgc::launch_walk(
+        rgc::TableRows<__nv_bfloat16, 4>{t, rb, ix, ww, true}, ip, o, n_rows,
+        d, (int)(rb / 4), plan, s);
+  }
+  if (rb % 16 == 0)
+    return (int)rgc::launch_walk(rgc::TableRows<float, 16>{
+        t, rb, ix, ww, false}, ip, o, n_rows, d, (int)(rb / 16), plan, s);
+  return (int)rgc::launch_walk(rgc::TableRows<float, 8>{
+      t, rb, ix, ww, false}, ip, o, n_rows, d, (int)(rb / 8), plan, s);
 }
 
 // Kernel B. `msgs` is (E, d) f32 with rows grouped by segment; d even,
 // d <= 512. out is (n_rows, d) f32.
 int rg_csr_segment_sum(const void* msgs, const void* indptr, void* out,
                        long long n_rows, int d, void* stream) {
-  return (int)launch<kPlain>(static_cast<const float*>(msgs), nullptr, nullptr,
+  return (int)launch<kPlain>(static_cast<const float*>(msgs), nullptr,
                             static_cast<const int*>(indptr),
                             static_cast<float*>(out), n_rows, d, false,
                             static_cast<cudaStream_t>(stream));
@@ -198,12 +215,12 @@ int rg_csr_segsum_packed2_w(const void* msgs2, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16_rows)
     return (int)launch<kPacked>(static_cast<const __nv_bfloat16*>(msgs2),
-                                static_cast<const float*>(w), nullptr,
+                                static_cast<const float*>(w),
                                 static_cast<const int*>(indptr),
                                 static_cast<float*>(out), n_rows, d,
                                 round_to_bf16 != 0, s, block);
   return (int)launch<kPacked>(static_cast<const float*>(msgs2),
-                              static_cast<const float*>(w), nullptr,
+                              static_cast<const float*>(w),
                               static_cast<const int*>(indptr),
                               static_cast<float*>(out), n_rows, d,
                               round_to_bf16 != 0, s, block);

@@ -30,28 +30,33 @@
 //      the group has been taken by then, so the probe times the whole tile.
 //      Its sums are the tensor cores' order, within a few f32 roundings of
 //      kernel F's score of key 128*g + pick_row.
-//   K  bytes: 8.4 MB of indices, 16.8 MB of weights, a 33.5 MB table (gathered
-//      2^21 times, from L2) and a 67 MB result at N = 2^18, D = 64, 2^21
-//      edges. Kernel A's walk (csr_segment.cu): one warp per receiver row,
-//      lanes own column pairs, and each edge's 2D-wide packed row gives both
-//      halves, each with its own weight. Direct sums in edge order, no prefix
-//      difference.
+//   K  bytes: 8.4 MB of indices, 16.8 MB of weights, a 33.5 MB table and a
+//      67 MB result at N = 2^18, D = 64, 2^21 edges (the bound, 127 MB, 0.038
+//      ms at 3.35 TB/s). The gathers read more, from L2: 2^21 packed rows of
+//      256 bytes, 537 MB, from a table that fits in the 50 MB L2, so L2
+//      bandwidth and load latency hold K, not device memory. K is kernel A's
+//      row walk (rg_csr.cuh, PackedRows): groups of 8 lanes a 64-wide row,
+//      each lane a 16-byte load from the low and from the high half of an
+//      edge's packed row, 2 edges' rows a lane in flight, 8 short rows a
+//      group walked as one stream of batches whose next ids load before this
+//      batch's rows; rows of more than hub_edges edges cut into pieces,
+//      summed in a fixed order. Every edge adds the low
+//      half's product and then the high half's into one f32 sum, in edge
+//      order, so with the parity split K equals kernel A to the bit.
 //   L  bytes: the padded stream written (2,048 * P * 128 B, at least 268 MB),
 //      a 33.5 MB table and the columns read. One block per table block holds
 //      its 128 rows in shared memory and copies 16 bytes a thread.
 
+#include "rg_csr.cuh"
 #include "rg_mma.cuh"
 #include "rg_tile.cuh"
 
 namespace {
 
-using rg::kFull;
-
 constexpr int kLane = 128;     // rows per group (J) and per table block (L)
 constexpr int kJThreads = 2 * 128;  // J: a warpgroup per 64 keys of a group
 constexpr int kGroupsPerBlock = 16;  // J: groups one block walks over
 constexpr int kThreads = 256;  // L
-constexpr int kWarps = 8;      // K: receiver rows per block
 
 // ---- J ---------------------------------------------------------------------
 
@@ -105,73 +110,6 @@ mm_probe_kernel(const __nv_bfloat16* __restrict__ keys,
         if (gq + 1 < n_q) row[gq + 1] = b;
       }
     }
-  }
-}
-
-// ---- K ---------------------------------------------------------------------
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// CH = number of 64-column chunks a lane covers (d <= 64 * CH).
-template <int CH>
-__global__ void __launch_bounds__(kWarps * 32)
-packed_table_kernel(const __nv_bfloat16* __restrict__ table,
-                    const float* __restrict__ w_lo,
-                    const float* __restrict__ w_hi,
-                    const int* __restrict__ idx_half,
-                    const int* __restrict__ indptr, float* __restrict__ out,
-                    long long n_rows, int d) {
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const int start = indptr[row];
-  const int end = indptr[row + 1];
-
-  float2 acc[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c) acc[c] = make_float2(0.f, 0.f);
-
-  for (int base = start; base < end; base += 32) {
-    const int e = base + lane;
-    int my_src = 0;
-    float my_lo = 0.f, my_hi = 0.f;
-    if (e < end) {
-      my_src = idx_half[e];
-      my_lo = round_bf16(w_lo[e]);
-      my_hi = round_bf16(w_hi[e]);
-    }
-    const int cnt = min(32, end - base);
-#pragma unroll 4
-    for (int j = 0; j < cnt; ++j) {
-      const int s = __shfl_sync(kFull, my_src, j);
-      const float wl = __shfl_sync(kFull, my_lo, j);
-      const float wh = __shfl_sync(kFull, my_hi, j);
-      const __nv_bfloat16* rowp = table + (long long)s * 2 * d;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int col = 2 * (lane + 32 * c);
-        if (col < d) {
-          const float2 lo = load_pair(rowp + col);
-          const float2 hi = load_pair(rowp + d + col);
-          acc[c].x = fmaf(wl, lo.x, acc[c].x);
-          acc[c].y = fmaf(wl, lo.y, acc[c].y);
-          acc[c].x = fmaf(wh, hi.x, acc[c].x);
-          acc[c].y = fmaf(wh, hi.y, acc[c].y);
-        }
-      }
-    }
-  }
-  float* orow = out + row * (long long)d;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int col = 2 * (lane + 32 * c);
-    if (col < d) *reinterpret_cast<float2*>(orow + col) = acc[c];
   }
 }
 
@@ -232,29 +170,34 @@ int rg_mm_probe(const void* keys, const void* q, void* out, int n_r, int n_q,
 // Kernel K. table (M, 2d) bf16: packed row m holds [row 2m | row 2m + 1] of
 // the (2M, d) table; idx_half (E,) int32 packed rows; w_lo, w_hi (E,) f32,
 // rounded to bf16 here; indptr (n_rows + 1,) int32 over the receiver-sorted
-// edges; d even, d <= 128. out is (n_rows, d) f32:
+// edges; d even, d <= 128. The walk plan (hub_edges ... n_pieces) is
+// ops/csr_segment.py::walk_plan(indptr); partial is (n_pieces, d) f32
+// scratch. out is (n_rows, d) f32:
 // out[r] = sum_e w_lo[e] * table[idx_half[e], :d] + w_hi[e] * table[.., d:].
 int rg_packed_table_segsum(const void* table, const void* w_lo,
                            const void* w_hi, const void* idx_half,
                            const void* indptr, void* out, long long n_rows,
-                           int d, void* stream) {
-  if (n_rows == 0) return (int)cudaGetLastError();
-  const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
-  const dim3 block(kWarps * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* t = static_cast<const __nv_bfloat16*>(table);
+                           int d, int hub_edges, const void* long_rows,
+                           const void* piece_ptr, long long n_long,
+                           const void* pieces, long long n_pieces,
+                           void* partial, void* stream) {
+  const rgc::Plan plan = rgc::make_plan(hub_edges, long_rows, piece_ptr,
+                                        n_long, pieces, n_pieces, partial);
+  const char* t = static_cast<const char*>(table);
+  const int* ix = static_cast<const int*>(idx_half);
   const float* wl = static_cast<const float*>(w_lo);
   const float* wh = static_cast<const float*>(w_hi);
-  const int* ix = static_cast<const int*>(idx_half);
   const int* ip = static_cast<const int*>(indptr);
   float* o = static_cast<float*>(out);
-  if (d <= 64)
-    packed_table_kernel<1><<<grid, block, 0, s>>>(t, wl, wh, ix, ip, o,
-                                                  n_rows, d);
-  else
-    packed_table_kernel<2><<<grid, block, 0, s>>>(t, wl, wh, ix, ip, o,
-                                                  n_rows, d);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long half = 2LL * d;  // bytes of a half row
+  if (half % 16 == 0)
+    return (int)rgc::launch_walk(
+        rgc::PackedRows<16>{t, 2 * half, half, ix, wl, wh}, ip, o, n_rows, d,
+        (int)(half / 16), plan, s);
+  return (int)rgc::launch_walk(rgc::PackedRows<4>{t, 2 * half, half, ix, wl,
+                                                  wh},
+                               ip, o, n_rows, d, (int)(half / 4), plan, s);
 }
 
 // Kernel L. col (nb, p) int32 block-local rows; table (n_rows, d) bf16 with

@@ -9,7 +9,7 @@ import dataclasses
 
 import torch
 
-from ragraph_tpu_torch.ops.csr_segment import (gather_scale_segsum,
+from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, gather_scale_segsum,
                                                sorted_segment_sum_grad)
 from ragraph_tpu_torch.ops.segment import scatter_sum, segment_softmax
 from ragraph_tpu_torch.ops.similarity import l2_normalize
@@ -200,11 +200,14 @@ def lightgcn_propagate(all_emb: torch.Tensor, senders: torch.Tensor,
                        weights_send: torch.Tensor | None = None,
                        recv_of_send: torch.Tensor | None = None,
                        send_indptr: torch.Tensor | None = None,
-                       bf16: bool = True) -> list:
+                       bf16: bool = True,
+                       recv_plan: WalkPlan | None = None,
+                       send_plan: WalkPlan | None = None) -> list:
     """LightGCN layers; returns ``[h0, h1, ..., hL]``.
 
     ``impl="fused"`` with all sender-order arrays runs
-    :func:`gather_scale_segsum` (kernel A); ``"fused"`` without them falls
+    :func:`gather_scale_segsum` (kernel A, with the walk plans of the two
+    indptrs when given); ``"fused"`` without them falls
     to ``"sorted"``, which gathers and scales the rows and sums them with
     :func:`sorted_segment_sum_grad` (kernel B); ``"scatter"`` is
     ``index_add_``.
@@ -219,7 +222,8 @@ def lightgcn_propagate(all_emb: torch.Tensor, senders: torch.Tensor,
         if use_fused:
             layers.append(gather_scale_segsum(
                 layers[-1], weights, weights_send, senders, recv_indptr,
-                recv_of_send, send_indptr, bf16=bf16))
+                recv_of_send, send_indptr, bf16=bf16, recv_plan=recv_plan,
+                send_plan=send_plan))
             continue
         msgs = layers[-1][senders.long()] * weights[:, None]
         if use_sorted:

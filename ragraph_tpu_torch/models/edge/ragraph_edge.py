@@ -46,6 +46,7 @@ from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig, bpr_loss,
                                                 relative_time_encoding)
 from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
 from ragraph_tpu_torch.nn.lora import LoRAFactors, apply_lora, svd_init
+from ragraph_tpu_torch.ops.csr_segment import WalkPlan, walk_plan
 from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
@@ -83,6 +84,11 @@ EDGE_DATASET_CONFIGS = {
 _TENSOR_FIELDS = ("senders", "receivers", "edge_norm", "edge_times",
                   "recv_indptr", "send_perm", "send_indptr", "recv_of_send",
                   "edge_norm_send", "time_norm", "time_norm_send")
+_PLAN_FIELDS = ("recv_plan", "send_plan")
+
+
+def _plan_to(plan: WalkPlan, device: torch.device) -> WalkPlan:
+    return WalkPlan(*(t.to(device) for t in plan))
 
 
 @dataclasses.dataclass
@@ -91,7 +97,9 @@ class EdgeGraphArrays:
 
     Receiver-sorted edges with CSR bounds, plus the sender-order arrays of
     the fused propagation's backward and the static per-destination time
-    softmax, computed exactly in f64 on the host.
+    softmax, computed exactly in f64 on the host, and the walk plans of
+    kernel A's forward and backward (``recv_plan`` of ``recv_indptr``,
+    ``send_plan`` of ``send_indptr``), made once on the host.
     """
 
     senders: torch.Tensor
@@ -107,6 +115,8 @@ class EdgeGraphArrays:
     edge_norm_send: torch.Tensor | None = None
     time_norm: torch.Tensor | None = None
     time_norm_send: torch.Tensor | None = None
+    recv_plan: WalkPlan | None = None
+    send_plan: WalkPlan | None = None
 
     @classmethod
     def from_dataset(cls, ds: EdgeDataset,
@@ -135,12 +145,18 @@ class EdgeGraphArrays:
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
+        def plan(ip):
+            return _plan_to(walk_plan(torch.from_numpy(np.ascontiguousarray(ip))),
+                            dev)
+
         indptr = getattr(ds, "recv_indptr", None)
         return cls(senders=put(send), receivers=put(recv),
                    edge_norm=put(norm), edge_times=put(ds.edge_times_bi),
                    num_users=ds.num_users, num_items=ds.num_items,
                    recv_indptr=put(indptr) if indptr is not None else None,
+                   recv_plan=plan(indptr) if indptr is not None else None,
                    send_perm=put(perm), send_indptr=put(sip),
+                   send_plan=plan(sip),
                    recv_of_send=put(recv[perm].astype(np.int32)),
                    edge_norm_send=put(norm[perm]),
                    time_norm=put(tn), time_norm_send=put(tn[perm]))
@@ -149,6 +165,8 @@ class EdgeGraphArrays:
         dev = resolve_device(device)
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(dev) for f in _TENSOR_FIELDS
+            if getattr(self, f) is not None}, **{
+            f: _plan_to(getattr(self, f), dev) for f in _PLAN_FIELDS
             if getattr(self, f) is not None})
 
     @property
@@ -289,7 +307,8 @@ class TemporalLightGCN:
                                   weights_send=w_send,
                                   recv_of_send=g.recv_of_send,
                                   send_indptr=g.send_indptr,
-                                  bf16=self._bf16())
+                                  bf16=self._bf16(), recv_plan=g.recv_plan,
+                                  send_plan=g.send_plan)
 
     # -- params ------------------------------------------------------------
 

@@ -39,8 +39,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # table, w, idx, indptr, out, n_rows, d, bf16 table, stream
-    "rg_csr_gather_scale_segsum": [_P, _P, _P, _P, _P, _L, _I, _I, _P],
+    # table, w, idx, indptr, out, n_rows, d, bf16 table (and weights),
+    # then the walk plan: hub_edges, long_rows, piece_ptr, n_long, pieces,
+    # n_pieces, partial; stream
+    "rg_csr_gather_scale_segsum": [_P, _P, _P, _P, _P, _L, _I, _I,
+                                   _I, _P, _P, _L, _P, _L, _P, _P],
     # msgs, indptr, out, n_rows, d, stream
     "rg_csr_segment_sum": [_P, _P, _P, _L, _I, _P],
     # q, keys, valid, part_s, part_i, bound, out_s, out_i, Q, R, E, k,
@@ -65,8 +68,10 @@ _SIGNATURES = {
     "rg_csr_segsum_packed2_w": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
     # keys, q, out, R, Q, E, written row of each 128-row group, stream
     "rg_mm_probe": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # packed table, w_lo, w_hi, idx_half, indptr, out, n_rows, d, stream
-    "rg_packed_table_segsum": [_P, _P, _P, _P, _P, _P, _L, _I, _P],
+    # packed table, w_lo, w_hi, idx_half, indptr, out, n_rows, d, the walk
+    # plan (as kernel A's), stream
+    "rg_packed_table_segsum": [_P, _P, _P, _P, _P, _P, _L, _I,
+                               _I, _P, _P, _L, _P, _L, _P, _P],
     # col, table, out, blocks, slots per block, table rows, d, stream
     "rg_onehot_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
 }

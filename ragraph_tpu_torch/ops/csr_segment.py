@@ -3,9 +3,12 @@
 
 - :func:`gather_scale_segsum`: ``out[r] = Σ_{e∈[indptr[r], indptr[r+1])}
   w[e]·emb[senders[e]]`` over receiver-sorted CSR. Kernel A on CUDA
-  (``csrc/csr_segment.cu``). Its backward is the same kernel on the
-  sender-order arrays, as in the JAX custom VJP; the weights get no
-  gradient.
+  (``csrc/csr_segment.cu`` on the row walk of ``csrc/rg_csr.cuh``, which
+  kernel K shares). Its backward is the same kernel on the sender-order
+  arrays, as in the JAX custom VJP; the weights get no gradient.
+- :func:`walk_plan`: which rows kernels A and K cut into pieces (those of
+  more than ``HUB_EDGES`` edges) and where the pieces lie, from ``indptr``
+  alone. A wrapper makes it when it is not handed one.
 - :func:`sorted_segment_sum_grad`: ``out[r] = Σ msgs[e]`` over CSR segments
   of pre-scaled f32 messages. Kernel B on CUDA. Its backward is
   ``ct[seg_ids]``.
@@ -26,9 +29,62 @@ than the TPU's prefix difference (``pallas_segment.py:145-148``).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ragraph_tpu_torch import native
+
+# Kernels A and K walk a row of at most this many edges with one lane group;
+# a longer row is cut into pieces of this many edges (the last one shorter),
+# each walked by a group of its own, and its partial sums add in piece order.
+HUB_EDGES = 128
+
+
+class WalkPlan(NamedTuple):
+    """The rows that kernels A and K cut into pieces, for one ``indptr``:
+    ``long_rows`` (ascending) have more than ``HUB_EDGES`` edges; long row
+    ``i``'s pieces are ``pieces[piece_ptr[i]:piece_ptr[i + 1]]``, each a
+    ``[begin, end)`` range of ``HUB_EDGES`` edges, the last one shorter."""
+    long_rows: torch.Tensor   # (n_long,) int32
+    piece_ptr: torch.Tensor   # (n_long + 1,) int32
+    pieces: torch.Tensor      # (n_pieces, 2) int32
+
+
+def walk_plan(indptr: torch.Tensor) -> WalkPlan:
+    """The walk plan of ``indptr``, made on its device from ``indptr`` alone.
+
+    Making it reads two counts to the host, so a graph's CSR, fixed across
+    a run, is planned once where it is built
+    (``models.edge.EdgeGraphArrays``) and the plan handed to each call.
+    """
+    ip = indptr.long()
+    lens = ip[1:] - ip[:-1]
+    long_rows = torch.nonzero(lens > HUB_EDGES).flatten()
+    counts = (lens[long_rows] + HUB_EDGES - 1) // HUB_EDGES
+    piece_ptr = torch.zeros(len(long_rows) + 1, dtype=torch.long,
+                            device=ip.device)
+    torch.cumsum(counts, 0, out=piece_ptr[1:])
+    n_pieces = int(piece_ptr[-1])
+    owner = torch.repeat_interleave(
+        torch.arange(len(long_rows), device=ip.device), counts,
+        output_size=n_pieces)
+    row = long_rows[owner]
+    begin = ip[row] + HUB_EDGES * (
+        torch.arange(n_pieces, device=ip.device) - piece_ptr[owner])
+    end = torch.minimum(begin + HUB_EDGES, ip[row + 1])
+    return WalkPlan(long_rows.int(), piece_ptr.int(),
+                    torch.stack([begin, end], 1).int().contiguous())
+
+
+def walk_plan_args(plan: WalkPlan, d: int) -> tuple:
+    """The plan's arguments of kernels A's and K's C entry points, with the
+    ``(n_pieces, d)`` f32 scratch of the pieces' partial sums."""
+    partial = torch.empty(len(plan.pieces), d, dtype=torch.float32,
+                          device=plan.pieces.device)
+    return (HUB_EDGES, plan.long_rows.data_ptr(), plan.piece_ptr.data_ptr(),
+            len(plan.long_rows), plan.pieces.data_ptr(), len(plan.pieces),
+            partial.data_ptr()), partial
 
 
 def _segment_ids(indptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -126,9 +182,15 @@ def _check_width(name: str, d: int) -> None:
 
 
 def _csr_gather_scale(table: torch.Tensor, w: torch.Tensor,
-                      idx: torch.Tensor, indptr: torch.Tensor,
-                      bf16: bool) -> torch.Tensor:
-    """Kernel A on CUDA tensors, its plain version on CPU tensors."""
+                      idx: torch.Tensor, indptr: torch.Tensor, bf16: bool,
+                      plan: WalkPlan | None = None) -> torch.Tensor:
+    """Kernel A on CUDA tensors, its plain version on CPU tensors.
+
+    ``plan`` is ``walk_plan(indptr)``, made here when not given. With
+    ``bf16`` the wrapper casts the table to bf16 before the kernel: on the
+    card that is faster than rounding the f32 rows inside the kernel
+    (PERF.md).
+    """
     if table.device.type == "cpu":
         return gather_scale_segsum_plain(table, w, idx, indptr, bf16)
     name = "csr_gather_scale_segsum"
@@ -139,10 +201,12 @@ def _csr_gather_scale(table: torch.Tensor, w: torch.Tensor,
     _check_width(name, d)
     if len(w) != len(idx):
         raise ValueError(f"{name}: {len(w)} weights for {len(idx)} edges")
+    plan_args, _partial = walk_plan_args(plan or walk_plan(indptr), d)
     out = torch.empty(n_rows, d, dtype=torch.float32, device=src.device)
     rc = native.lib().rg_csr_gather_scale_segsum(
         src.data_ptr(), w.data_ptr(), idx.data_ptr(), indptr.data_ptr(),
-        out.data_ptr(), n_rows, d, int(bf16), native.stream_ptr(src))
+        out.data_ptr(), n_rows, d, int(bf16), *plan_args,
+        native.stream_ptr(src))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out
@@ -199,25 +263,30 @@ def segsum_packed2_w(msgs2: torch.Tensor, w: torch.Tensor,
 class _GatherScaleSegsum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb, w_recv, w_send, senders, recv_indptr, recv_of_send,
-                send_indptr, bf16):
+                send_indptr, bf16, recv_plan, send_plan):
         ctx.save_for_backward(w_send, recv_of_send, send_indptr)
-        ctx.bf16 = bf16
-        return _csr_gather_scale(emb, w_recv, senders, recv_indptr, bf16)
+        ctx.bf16, ctx.send_plan = bf16, send_plan
+        return _csr_gather_scale(emb, w_recv, senders, recv_indptr, bf16,
+                                 recv_plan)
 
     @staticmethod
     def backward(ctx, ct):
         w_send, recv_of_send, send_indptr = ctx.saved_tensors
         d_emb = _csr_gather_scale(ct.contiguous(), w_send, recv_of_send,
-                                  send_indptr, ctx.bf16)
-        return d_emb, None, None, None, None, None, None, None
+                                  send_indptr, ctx.bf16, ctx.send_plan)
+        return (d_emb,) + (None,) * 9
 
 
 def gather_scale_segsum(emb, w_recv, w_send, senders, recv_indptr,
-                        recv_of_send, send_indptr, bf16: bool = True):
-    """Differentiable fused LightGCN propagation layer (see module doc)."""
+                        recv_of_send, send_indptr, bf16: bool = True,
+                        recv_plan: WalkPlan | None = None,
+                        send_plan: WalkPlan | None = None):
+    """Differentiable fused LightGCN propagation layer (see module doc).
+    ``recv_plan`` and ``send_plan`` are the walk plans of ``recv_indptr``
+    and ``send_indptr``; a kernel launch without one makes it."""
     return _GatherScaleSegsum.apply(emb, w_recv, w_send, senders,
                                     recv_indptr, recv_of_send, send_indptr,
-                                    bf16)
+                                    bf16, recv_plan, send_plan)
 
 
 class _SortedSegmentSum(torch.autograd.Function):

@@ -14,7 +14,10 @@ the three Pallas kernels that live in ``benchmarks/bench_exact_phases.py``,
 - :func:`packed_table_segsum` (K): kernel A's weighted segment sum from a
   table packed two rows to one, ``out[r] = Σ_e w_lo[e]·T[idx_half[e], :D] +
   w_hi[e]·T[idx_half[e], D:]`` over receiver-sorted CSR. Both weights may be
-  non-zero; they are rounded to bf16 and the products add in f32.
+  non-zero; they are rounded to bf16 and the products add in f32. On the
+  card it runs kernel A's row walk (``csrc/rg_csr.cuh``) with the same
+  :func:`~ragraph_tpu_torch.ops.csr_segment.walk_plan`, so with the parity
+  split it equals kernel A bit for bit.
 - :func:`onehot_block_gather` (L): a block-local row gather over a padded,
   sender-sorted edge stream, ``out[b·P + s] = table[128·b + col[b, s]]`` and
   a zero row for a padding slot. :func:`build_onehot_layout` makes the
@@ -32,7 +35,9 @@ import torch
 
 from ragraph_tpu_torch import native
 from ragraph_tpu_torch.ops.bucket_topk import LANE, _check_qk, _fma_chain
-from ragraph_tpu_torch.ops.csr_segment import _check_cuda, _segment_ids
+from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, _check_cuda,
+                                              _segment_ids, walk_plan,
+                                              walk_plan_args)
 
 MAX_PACKED_D = 128   # kernel K: half width of a packed row
 MAX_GATHER_D = 512   # kernel L: 128 rows of this width fit shared memory
@@ -124,11 +129,13 @@ def packed_table_segsum_plain(table_packed: torch.Tensor, w_lo: torch.Tensor,
 
 def packed_table_segsum(table_packed: torch.Tensor, w_lo: torch.Tensor,
                         w_hi: torch.Tensor, idx_half: torch.Tensor,
-                        indptr: torch.Tensor) -> torch.Tensor:
+                        indptr: torch.Tensor,
+                        plan: WalkPlan | None = None) -> torch.Tensor:
     """``out[r] = Σ_{e∈[indptr[r], indptr[r+1])} w_lo[e]·T[idx_half[e], :D]
     + w_hi[e]·T[idx_half[e], D:]``, ``(len(indptr) - 1, D)`` f32, from the
     packed ``(N/2, 2D)`` table ``T``. Rows and weights are rounded to bf16;
-    products and sums are f32. Empty segments give zero rows."""
+    products and sums are f32. Empty segments give zero rows. ``plan`` is
+    ``walk_plan(indptr)``, made here when not given."""
     if table_packed.device.type == "cpu":
         return packed_table_segsum_plain(table_packed, w_lo, w_hi, idx_half,
                                          indptr)
@@ -140,11 +147,12 @@ def packed_table_segsum(table_packed: torch.Tensor, w_lo: torch.Tensor,
                 idx_half=(idx_half, torch.int32, 1),
                 indptr=(indptr, torch.int32, 1))
     n_rows = len(indptr) - 1
+    plan_args, _partial = walk_plan_args(plan or walk_plan(indptr), d)
     out = torch.empty(n_rows, d, dtype=torch.float32, device=src.device)
     rc = native.lib().rg_packed_table_segsum(
         src.data_ptr(), w_lo.data_ptr(), w_hi.data_ptr(),
         idx_half.data_ptr(), indptr.data_ptr(), out.data_ptr(), n_rows, d,
-        native.stream_ptr(src))
+        *plan_args, native.stream_ptr(src))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out

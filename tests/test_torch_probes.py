@@ -31,8 +31,8 @@ from jax.experimental import pallas as pl
 
 from ragraph_tpu.ops import bucket_topk as jbt
 from ragraph_tpu.ops import pallas_segment as jps
-from ragraph_tpu_torch.bench import (exact_phases, main_path, onehot_gather,
-                                     packed_table_gather)
+from ragraph_tpu_torch.bench import (csr_walk, exact_phases, main_path,
+                                     onehot_gather, packed_table_gather)
 from ragraph_tpu_torch.ops import bucket_topk as tbt
 from ragraph_tpu_torch.ops import csr_segment as tcs
 from ragraph_tpu_torch.ops import probes
@@ -336,6 +336,7 @@ BENCHES = {
     "onehot_gather": (onehot_gather, ("N", "D", "E", "P", "padded_slots",
                                       "mismatched")),
     "main_path": (main_path, ("users", "items", "edges", "topk_R", "k")),
+    "csr_walk": (csr_walk, ("N", "E", "D", "degrees")),
 }
 TIMES = {
     "exact_phases": ("latency", "throughput"),
@@ -345,6 +346,7 @@ TIMES = {
     "main_path": ("pretrain_step_ms", "finetune_step_ms",
                   "pretrain_step_plain_ms", "finetune_step_plain_ms",
                   "exact_topk"),
+    "csr_walk": ("uniform", "skewed", "main_path"),
 }
 
 
