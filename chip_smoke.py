@@ -21,7 +21,9 @@ Phases (any failure exits non-zero):
    maximum; the three probe kernels also against their neighbours (J
    within ``TOL_SCORE`` of kernel F's scores and not above kernel D's
    maxima by more, K against kernel A, L exact); E and G bit for bit at
-   every k of ``K_SWEEP`` on ragged, tied and exhausted inputs;
+   every k of ``K_SWEEP`` on ragged, tied and exhausted inputs; kernel H
+   at its tile, group and supergroup edges, at widths 1 to 512 and past
+   2^31 elements, two calls giving the same bits;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
@@ -390,18 +392,39 @@ def random_indptr(rng, dev, n_edges, n_segs, hub):
     return torch.from_numpy(np.cumsum(indptr).astype(np.int32)).to(dev)
 
 
-def prefix_checks(gen, dev, n, d, dtype):
+def prefix_checks(gen, dev, n, d, dtype, repeat=False, misaligned=False):
     """Kernel H against its plain version and a float64 sum, inclusive and
-    exclusive, with the grand total."""
+    exclusive, with the grand total; with ``repeat``, a second call must
+    give the same bits. With ``misaligned``, ``x`` is a contiguous view one
+    element into a flat buffer (no vector loads), and it must give the same
+    bits as an aligned copy: the order of the adds follows the shape."""
     import torch
 
     from ragraph_tpu_torch.ops import prefix_sum as ps
-    x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
+    if misaligned:
+        flat = torch.randn(n * d + 1, generator=gen, device=dev).to(dtype)
+        x = flat[1:].view(n, d)
+    else:
+        x = torch.randn(n, d, generator=gen, device=dev).to(dtype)
     exact = torch.cumsum(x.double(), 0)
-    tag = f"N={n} D={d} {str(dtype).split('.')[-1]}"
+    tag = (f"N={n} D={d} {str(dtype).split('.')[-1]}"
+           + (" misaligned" if misaligned else ""))
     worst = 0.0
     for exclusive in (False, True):
         got, total = ps.prefix_sum(x, exclusive)
+        if repeat:
+            again, total_again = ps.prefix_sum(x, exclusive)
+            if not (torch.equal(got, again)
+                    and torch.equal(total, total_again)):
+                fail(f"H {tag} exclusive={exclusive}: two calls differ")
+            del again
+        if misaligned:
+            aligned, total_aligned = ps.prefix_sum(x.clone(), exclusive)
+            if not (torch.equal(got, aligned)
+                    and torch.equal(total, total_aligned)):
+                fail(f"H {tag} exclusive={exclusive}: differs from the "
+                     f"aligned copy's bits")
+            del aligned
         torch.cuda.synchronize()
         ref, ref_total = ps.prefix_sum_plain(x, exclusive)
         what = "exclusive" if exclusive else "inclusive"
@@ -421,6 +444,68 @@ def prefix_checks(gen, dev, n, d, dtype):
             fail(f"H total {tag}: error {t_err:.3e} at prefix size "
                  f"{scale:.3e}")
     return worst
+
+
+def kernel_h_tiles():
+    """Kernel H's tile rows, tiles a group and groups a supergroup, read
+    from its source (``kTileRows``, ``kGroup``, ``kSuper``), so that the
+    edge checks follow the kernel."""
+    import re
+
+    from ragraph_tpu_torch import native
+    src = (native.CSRC / "prefix_sum.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);",
+                               src).group(1))
+                 for name in ("kTileRows", "kGroup", "kSuper"))
+
+
+def prefix_big_check(gen, dev, n=(1 << 25) + 7, step=1 << 20, tail=4096):
+    """Kernel H past 2^31 elements (64-bit offsets): 2^25 + 7 rows of 64
+    bf16 columns, 4.3 GB in, 8.6 GB out each way. Inclusive and exclusive
+    held to the plain version row chunk by row chunk; the prefix at every
+    chunk's last row, the last rows and the total to float64 sums."""
+    import torch
+
+    from ragraph_tpu_torch.ops import prefix_sum as ps
+    x = torch.empty(n, D, dtype=torch.bfloat16, device=dev)
+    for r in range(0, n, step):
+        x[r:r + step] = torch.randn(min(step, n - r), D, generator=gen,
+                                    device=dev)
+    got, total = ps.prefix_sum(x, False)
+    excl, excl_total = ps.prefix_sum(x, True)
+    torch.cuda.synchronize()
+    ref, ref_total = ps.prefix_sum_plain(x, False)
+    scale = float(ref.abs().max())
+    err = float((total - ref_total).abs().max())
+    err_excl = max(float(excl[0].abs().max()),
+                   float((excl_total - ref_total).abs().max()))
+    for r in range(0, n, step):
+        hi = min(n, r + step)
+        err = max(err, float((got[r:hi] - ref[r:hi]).abs().max()))
+        lo = max(r, 1)      # exclusive row r is inclusive row r - 1
+        err_excl = max(err_excl, float((excl[lo:hi]
+                                        - ref[lo - 1:hi - 1]).abs().max()))
+    del ref, excl
+    torch.cuda.empty_cache()
+    run64 = torch.zeros(D, dtype=torch.float64, device=dev)
+    err64 = 0.0
+    for r in range(0, n - tail, step):
+        hi = min(n - tail, r + step)
+        run64 = run64 + x[r:hi].double().sum(0)
+        err64 = max(err64, float((got[hi - 1].double() - run64).abs().max()))
+    exact = run64 + torch.cumsum(x[n - tail:].double(), 0)
+    err64 = max(err64, float((got[n - tail:].double() - exact).abs().max()))
+    t_err = float((total[0].double() - exact[-1]).abs().max())
+    tol, tol64 = TOL_PREFIX[0] * scale, TOL_PREFIX_F64[0] * scale
+    ok = (err <= tol and err_excl <= tol and err64 <= tol64
+          and t_err <= tol64 and bool(torch.isfinite(got).all()))
+    print(f"  H N={n} D={D} bfloat16 ({n * D} elements): against the plain "
+          f"version inclusive {err:.3e}, exclusive {err_excl:.3e} (tol "
+          f"{tol:.3e}); against float64 {err64:.3e}, total {t_err:.3e} "
+          f"(tol {tol64:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("kernel H past 2^31 elements disagrees")
+    del x, got
 
 
 def prefix_segsum_checks(rng, gen, dev, n, n_segs, d, hub):
@@ -476,15 +561,36 @@ def hi_kernel_checks(rng, dev, graph):
     gen = torch.Generator(dev).manual_seed(SEED + 20)
     g = graph
     n = g.num_edges
-    errs["H"] = prefix_checks(gen, dev, n, D, torch.float32)
-    prefix_checks(gen, dev, n, D, torch.bfloat16)
+    errs["H"] = prefix_checks(gen, dev, n, D, torch.float32, repeat=True)
+    prefix_checks(gen, dev, n, D, torch.bfloat16, repeat=True)
     torch.cuda.empty_cache()
-    # N off every block size (chunk 128, 8 chunks a block, 32 spans), one
-    # row, one column, odd widths, D = 2 and D = 512
-    for n_rows, d in ((1, 1), (127, 3), (129, 2), (1000, 8), (4099, 512),
-                      (300001, 33), (32769, 64)):
-        for dtype in (torch.float32, torch.bfloat16):
+    # H's tile (T rows), group (G tiles) and supergroup edges at the path's
+    # width, f32 and bf16, and at D = 65 (two slabs, the second one column
+    # wide); every width at a group edge; D = 512 (eight slabs) past a
+    # supergroup edge, f32 and bf16, and past a group edge in bf16; bf16
+    # where D is no multiple of 8 (four columns a thread at D = 36, loaded
+    # one at a time at 3 and 33); inputs one element off alignment, bit for
+    # bit their aligned copies; one past 2^31 elements
+    t_rows, group, super_ = kernel_h_tiles()
+    grp = group * t_rows
+    sup = super_ * grp
+    for n_rows in (1, t_rows - 1, t_rows, t_rows + 1, grp - 1, grp, grp + 1,
+                   sup - 1, sup, sup + 1):
+        for d, dtype in ((D, torch.float32), (D, torch.bfloat16),
+                         (65, torch.float32)):
             prefix_checks(gen, dev, n_rows, d, dtype)
+    for d in (1, 3, 33, 64, 65, 512):
+        prefix_checks(gen, dev, grp + 1, d, torch.float32)
+    for d in (3, 33, 36, 512):
+        prefix_checks(gen, dev, grp + 1, d, torch.bfloat16, repeat=d == 33)
+    for dtype in (torch.float32, torch.bfloat16):
+        prefix_checks(gen, dev, sup + 1, 512, dtype)
+        torch.cuda.empty_cache()
+        prefix_checks(gen, dev, sup + 1, D, dtype, misaligned=True)
+    prefix_checks(gen, dev, grp + 1, 36, torch.float32, misaligned=True)
+    torch.cuda.empty_cache()
+    prefix_big_check(gen, dev)
+    torch.cuda.empty_cache()
     for n_rows, n_segs, d, hub in ((1000, 300, 16, False),
                                    (1000, 4000, 8, False),
                                    (50001, 700, 64, True), (5, 9, 2, False),
@@ -2147,6 +2253,11 @@ def phase_timing(dev, graph, errs, launches, probes, skewed):
     h_lib = cuda_ms(lambda: torch.cumsum(msgs, 0), reps=2, warmup=1)
     h_bytes = 4 * e * D + 4 * e * D + 4 * D
     h_ops = e * D
+    h_device = device_ms(lambda: ps.prefix_sum(msgs, True))
+    # the same messages in bf16: 2 bytes an element in instead of 4
+    msgs_bf16 = msgs.to(torch.bfloat16)
+    h_bf16_bound = (2 * e * D + 4 * e * D + 4 * D) / HBM_BYTES_PER_MS
+    h_bf16_device = device_ms(lambda: ps.prefix_sum(msgs_bf16, False))
     kernels.append(dict(
         name="prefix_sum", route="cuda",
         source="ragraph_tpu_torch/csrc/prefix_sum.cu",
@@ -2156,23 +2267,42 @@ def phase_timing(dev, graph, errs, launches, probes, skewed):
         bound_ms=max(h_bytes / HBM_BYTES_PER_MS, h_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if h_bytes / HBM_BYTES_PER_MS
         >= h_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=h_lib,
-        device_ms=device_ms(lambda: ps.prefix_sum(msgs, True)),
-        library_device_ms=device_ms(lambda: torch.cumsum(msgs, 0), 2)))
+        library_ms=h_lib, device_ms=h_device,
+        library_device_ms=device_ms(lambda: torch.cumsum(msgs, 0), 2),
+        device_share_of_bound=(h_bytes / HBM_BYTES_PER_MS) / h_device,
+        bf16_input_device_ms=h_bf16_device,
+        bf16_input_bound_ms=h_bf16_bound,
+        bf16_input_share_of_bound=h_bf16_bound / h_bf16_device))
     ip = g.recv_indptr
     detail_hi = {
         "H_sorted_segment_sum_with_boundary_difference": cuda_ms(
             lambda: ps.sorted_segment_sum(msgs, ip[:-1], ip[1:])),
         "H_inclusive_bf16_input": cuda_ms(
-            lambda: ps.prefix_sum(msgs.to(torch.bfloat16), False)),
+            lambda: ps.prefix_sum(msgs_bf16, False)),
         "B_same_messages": b_ms}
-    del msgs
+    del msgs, msgs_bf16
 
     # I: the packed (2^20, 128) f32 rows of the same edges, bf16 switch on.
-    # No one PyTorch call computes it; kernel A on the same edges is its
-    # yardstick (it also gathers the rows, which I is handed).
-    msgs2 = pack_half_split(rows, 512)
+    # Its one-call yardstick: the packed rows read as (E, D) hold edge e's
+    # row at 2 * ((e // 2B) * B + e % B) + (e // B) % 2 (B = 512), so a CSR
+    # matrix of the weights at those columns times that view is one
+    # torch.sparse.mm; rows and weights rounded to bf16 outside the timing,
+    # as kernel I rounds them.
+    blk = 512
+    msgs2 = pack_half_split(rows, blk)
     del rows
+    eid = torch.arange(e, device=dev)
+    pos = 2 * ((eid // (2 * blk)) * blk + eid % blk) + (eid // blk) % 2
+    i_view = msgs2.to(torch.bfloat16).float().view(e, D)
+    with warnings.catch_warnings():    # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        i_csr = torch.sparse_csr_tensor(
+            ip.long(), pos, w.to(torch.bfloat16).float(), size=(n, e))
+    del eid, pos
+    check_close("I's library call (torch.sparse.mm) against kernel I",
+                torch.sparse.mm(i_csr, i_view),
+                cs.segsum_packed2_w(msgs2, w, ip, e), TOL_SEGSUM)
+    i_lib = cuda_ms(lambda: torch.sparse.mm(i_csr, i_view), reps=5)
     i_ms = cuda_ms(lambda: cs.segsum_packed2_w(msgs2, w, ip, e))
     i_plain = cuda_ms(lambda: cs.segsum_packed2_w_plain(msgs2, w, ip, e, 512,
                                                         True), reps=3)
@@ -2187,9 +2317,11 @@ def phase_timing(dev, graph, errs, launches, probes, skewed):
         bound_ms=max(i_bytes / HBM_BYTES_PER_MS, i_ops / F32_FLOP_PER_MS),
         bound_by="bytes" if i_bytes / HBM_BYTES_PER_MS
         >= i_ops / F32_FLOP_PER_MS else "operations",
-        library_ms=None,
+        library_ms=i_lib,
         device_ms=device_ms(lambda: cs.segsum_packed2_w(msgs2, w, ip, e)),
-        library_device_ms=None))
+        library_device_ms=device_ms(lambda: torch.sparse.mm(i_csr, i_view),
+                                    5)))
+    del i_csr, i_view
     detail_hi.update({
         "I_bf16_rows": cuda_ms(lambda m=msgs2.to(torch.bfloat16):
                                cs.segsum_packed2_w(m, w, ip, e)),

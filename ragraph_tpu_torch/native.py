@@ -59,10 +59,9 @@ _SIGNATURES = {
     "rg_bucket_rescore": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, out_v, out_i, Q, W, k, list length, rows per block, stream
     "rg_row_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, out, total, partial, offsets, n, d, exclusive, bf16 input, stream
-    "rg_prefix_sum": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _P],
-    # rows per chunk of rg_prefix_sum's scratch (returned, not an error code)
-    "rg_prefix_sum_chunk": [],
+    # x, out, total, scratch (rg_prefix_sum_scratch_words), n, d,
+    # exclusive, bf16 input, stream
+    "rg_prefix_sum": [_P, _P, _P, _P, _L, _I, _I, _I, _P],
     # msgs2, w, indptr, out, n_rows, d, block, bf16 rows, round to bf16,
     # stream
     "rg_csr_segsum_packed2_w": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
@@ -160,6 +159,9 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         handle.rg_error_string.argtypes = [ctypes.c_int]
         handle.rg_error_string.restype = ctypes.c_char_p
+        # words of kernel H's scratch for (n, d); -1 for a shape it refuses
+        handle.rg_prefix_sum_scratch_words.argtypes = [_L, _I]
+        handle.rg_prefix_sum_scratch_words.restype = ctypes.c_longlong
         _lib = handle
     return _lib
 

@@ -5,7 +5,11 @@
 :func:`prefix_sum` is kernel H on CUDA tensors (``csrc/prefix_sum.cu``) and
 :func:`prefix_sum_plain` on CPU tensors: the inclusive or exclusive prefix
 over axis 0 of an f32 or bf16 ``(N, D)`` matrix, summed and returned in f32,
-with the ``(1, D)`` grand total.
+with the ``(1, D)`` grand total. Kernel H reads the input once: tiles of
+rows and column slabs pass their carry on through device memory in three
+levels (tiles, groups, supergroups), in an order fixed by the shape, so two
+calls give the same bits. The kernel's source owns its tiles and the layout
+of its scratch; the wrapper asks it for the scratch's size.
 
 :func:`sorted_segment_sum_indptr` keeps the JAX package's definition: the
 exclusive prefix read at the CSR bounds and differenced. The difference
@@ -57,14 +61,16 @@ def prefix_sum(x: torch.Tensor, exclusive: bool = False):
     if n == 0:
         return out, torch.zeros(1, d, dtype=torch.float32, device=x.device)
     lib = native.lib()
-    n_chunks = -(-n // lib.rg_prefix_sum_chunk())
+    words = lib.rg_prefix_sum_scratch_words(n, d)
+    if words < 0:
+        raise ValueError(f"{name}: {n} x {d} takes more tiles than a grid's "
+                         f"2^31 - 1 blocks")
     total = torch.empty(1, d, dtype=torch.float32, device=x.device)
-    scratch = torch.empty(2, n_chunks, d, dtype=torch.float32,
-                          device=x.device)
+    scratch = torch.empty(words, dtype=torch.int32, device=x.device)
     rc = lib.rg_prefix_sum(
-        x.data_ptr(), out.data_ptr(), total.data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), n, d, int(exclusive),
-        int(x.dtype == torch.bfloat16), native.stream_ptr(x))
+        x.data_ptr(), out.data_ptr(), total.data_ptr(), scratch.data_ptr(),
+        n, d, int(exclusive), int(x.dtype == torch.bfloat16),
+        native.stream_ptr(x))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out, total

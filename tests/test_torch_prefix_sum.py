@@ -48,8 +48,16 @@ def test_ops_exports_match_jax():
     assert tops.segsum_packed2_w is tcs.segsum_packed2_w
 
 
+# kernel H's tile and group edges (csrc/prefix_sum.cu's kTileRows = 256
+# rows a tile, kGroup = 64 tiles a group)
+_T, _GT = 256, 64 * 256
+
+
 @pytest.mark.parametrize("n,d,block", [(1000, 8, 128), (512, 16, 128),
-                                       (1, 4, 128), (777, 3, 256)])
+                                       (1, 4, 128), (777, 3, 256),
+                                       (_T - 1, 5, 128), (_T, 3, 128),
+                                       (_T + 1, 2, 128), (_GT - 1, 3, 1024),
+                                       (_GT, 2, 1024), (_GT + 1, 3, 1024)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_streaming_cumsum_matches_jax(n, d, block, dtype):
     rng = np.random.default_rng(n + d)
@@ -92,7 +100,8 @@ def test_prefix_sum_total_and_exclusive(exclusive):
 
 @pytest.mark.parametrize("n_edges,n_segs,d,hub", [
     (512, 64, 16, False), (1000, 300, 16, False), (1000, 40, 8, True),
-    (5, 9, 2, False), (1, 1, 4, False)])
+    (5, 9, 2, False), (1, 1, 4, False), (_T - 1, 40, 4, False),
+    (_T + 1, 300, 3, True), (_GT + 1, 500, 2, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_sorted_segment_sum_matches_jax(n_edges, n_segs, d, hub, dtype):
     """Ragged N, empty segments, one hub segment, f32 and bf16 messages."""

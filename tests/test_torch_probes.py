@@ -32,7 +32,8 @@ from jax.experimental import pallas as pl
 from ragraph_tpu.ops import bucket_topk as jbt
 from ragraph_tpu.ops import pallas_segment as jps
 from ragraph_tpu_torch.bench import (csr_walk, exact_phases, main_path,
-                                     onehot_gather, packed_table_gather)
+                                     onehot_gather, packed_table_gather,
+                                     prefix_scan)
 from ragraph_tpu_torch.ops import bucket_topk as tbt
 from ragraph_tpu_torch.ops import csr_segment as tcs
 from ragraph_tpu_torch.ops import probes
@@ -337,6 +338,7 @@ BENCHES = {
                                       "mismatched")),
     "main_path": (main_path, ("users", "items", "edges", "topk_R", "k")),
     "csr_walk": (csr_walk, ("N", "E", "D", "degrees")),
+    "prefix_scan": (prefix_scan, ("shapes",)),
 }
 TIMES = {
     "exact_phases": ("latency", "throughput"),
@@ -347,6 +349,7 @@ TIMES = {
                   "pretrain_step_plain_ms", "finetune_step_plain_ms",
                   "exact_topk"),
     "csr_walk": ("uniform", "skewed", "main_path"),
+    "prefix_scan": ("f32_excl_small", "bf16_incl_small"),
 }
 
 
