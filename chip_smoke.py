@@ -64,7 +64,15 @@ Phases (any failure exits non-zero):
    as TU text files, hidden 256, batch 16, a 65,536-row library):
    ``cli.node vanilla`` and ``finetune``, kernel C launched once per
    ``retrieve``, the library filled into its capacity clamp, a falling
-   loss and an accuracy above 0.5, with the stages timed.
+   loss and an accuracy above 0.5, with the stages timed;
+10. node pretraining and the graph level on the same files: ``cli.node
+   pretrain`` (3 epochs of ``lp``, a falling loss; one epoch of all six
+   terms), then ``cli.node vanilla --level graph`` and ``finetune --level
+   graph`` (``--epochs 10 --test-times 1``) from that checkpoint with a
+   65,536-row library: kernel C launched once per forward and held to its
+   plain version on the run's graph queries and store, timed there beside
+   its bound, an accuracy above 0.5, the pretrain step and the graph
+   ``retrieve`` timed.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -73,11 +81,13 @@ nothing of JAX and needs the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1924,17 +1934,61 @@ NODE_BATCH = 16
 NODE_CAPACITY = 65536       # the CLI's default
 
 
-def phase_node_path(dev):
+def node_dataset():
+    """The node and graph phases' data: ``NODE_GRAPHS`` synthetic graphs,
+    and the (train, val, test) graph counts of the CLI's split."""
+    from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
+    ds = synthetic_tu_dataset(seed=0, num_graphs=NODE_GRAPHS, num_classes=3,
+                              feat_dim=16, name="SYNTH3000")
+    n_train = int(.5 * NODE_GRAPHS)
+    n_val = int(.8 * NODE_GRAPHS) - n_train
+    return ds, (n_train, n_val, NODE_GRAPHS - n_train - n_val)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside are a check's, not the run's."""
+    from ragraph_tpu_torch import native
+    before = dict(native.LAUNCHES)
+    try:
+        yield
+    finally:
+        native.LAUNCHES.clear()
+        native.LAUNCHES.update(before)
+
+
+class TimedObserver:
+    """Base of the phases' ``cli.node.RunObserver``s: each stage's seconds
+    between two device synchronisations, in ``out["<stage>_s"]``."""
+
+    def __init__(self):
+        self.out = {}
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.out.setdefault(f"{name}_s", []).append(time.perf_counter() - t0)
+
+    def after(self, name, **o):
+        hook = getattr(self, f"after_{name}", None)
+        if hook is not None:
+            with uncounted():
+                hook(**o)
+
+
+def phase_node_path(dev, tu_root):
     """The static node pipeline at full width: hidden 256, batch 16, a
     65,536-row library that the train split fills to 60,000 rows and the val
     append runs into the clamp. ``cli.node vanilla`` and ``finetune`` run on
-    the dataset read from TU text files, each with an observer that times
-    the CLI's own stages and, between them, holds kernel C to its plain
-    version on the run's queries and store. Returns kernel C's largest
-    error at these shapes."""
-    import contextlib
+    the dataset read from the TU text files under ``tu_root``, each with an
+    observer that times the CLI's own stages and, between them, holds
+    kernel C to its plain version on the run's queries and store. Returns
+    kernel C's largest error at these shapes."""
     import copy
-    import tempfile
 
     import torch
 
@@ -1942,49 +1996,22 @@ def phase_node_path(dev):
     from ragraph_tpu_torch.bench import timing
     from ragraph_tpu_torch.cli import node as cli
     from ragraph_tpu_torch.data.batching import flat_batches
-    from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
     from ragraph_tpu_torch.models.ragraph_node import RAGraphNodeState
     from ragraph_tpu_torch.ops.similarity import l2_normalize
     from ragraph_tpu_torch.rag.library import retrieve
     print(f"phase 9: node path, {NODE_GRAPHS} graphs, hidden {NODE_HIDDEN}, "
           f"batch {NODE_BATCH}, library capacity {NODE_CAPACITY}", flush=True)
-    ds = synthetic_tu_dataset(seed=0, num_graphs=NODE_GRAPHS, num_classes=3,
-                              feat_dim=16, name="SYNTH3000")
-    n_train = int(.5 * NODE_GRAPHS)
-    n_val = int(.8 * NODE_GRAPHS) - n_train
-    n_test = NODE_GRAPHS - int(.8 * NODE_GRAPHS)
+    ds, (n_train, n_val, n_test) = node_dataset()
     val_batches, test_batches = -(-n_val // NODE_BATCH), \
         -(-n_test // NODE_BATCH)
 
-    @contextlib.contextmanager
-    def uncounted():
-        """Launches made inside are the checks', not the run's."""
-        before = dict(native.LAUNCHES)
-        try:
-            yield
-        finally:
-            native.LAUNCHES.clear()
-            native.LAUNCHES.update(before)
-
-    class Probe(cli.RunObserver):
+    class Probe(TimedObserver, cli.RunObserver):
         """Times the CLI's stages and checks the state between them."""
 
         def __init__(self, mode):
-            self.mode, self.out, self.c_err = mode, {}, 0.0
+            super().__init__()
+            self.mode, self.c_err = mode, 0.0
             self.out["finetune_losses"] = []
-
-        @contextlib.contextmanager
-        def stage(self, name):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            yield
-            torch.cuda.synchronize()
-            self.out.setdefault(f"{name}_s", []).append(
-                time.perf_counter() - t0)
-
-        def after(self, name, **o):
-            with uncounted():
-                getattr(self, f"after_{name}")(**o)
 
         def check_retrieval(self, when, task, state, libcfg, val, pad):
             """Kernel C at the shape ``retrieve`` gives it: one padded val
@@ -2059,7 +2086,8 @@ def phase_node_path(dev):
             self.out["finetune_step_ms"] = {
                 "forward": fwd, "backward": bwd, "optimizer": step,
                 "step": fwd + bwd + step}
-            for name, prm in list(twin.encoder.named_parameters()) \
+            # the finetuned parameters (the pretraining heads take no part)
+            for name, prm in list(twin.encoder.gcn.named_parameters("gcn")) \
                     + list(twin.decoder.named_parameters()):
                 if name.startswith("gcn.bns"):
                     continue    # the batch norms run only in pretraining
@@ -2079,65 +2107,263 @@ def phase_node_path(dev):
                                  val, pad)
 
     out, c_err = {}, 0.0
-    with tempfile.TemporaryDirectory() as tmp:
-        write_tu_dataset(tmp, ds)
-        common = ["--dataset", ds.name, "--data-root", tmp, "--save-dir",
-                  f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
-                  "--hidden", str(NODE_HIDDEN), "--batch-size",
-                  str(NODE_BATCH), "--library-capacity", str(NODE_CAPACITY),
-                  "--test-times", "1", "--device", str(dev)]
-        for mode, extra, want_c in (
-                ("vanilla", [], test_batches),
-                ("finetune", ["--epochs", "2"],
-                 2 * val_batches + test_batches)):
-            probe = Probe(mode)
-            native.reset_launches()
-            t0 = time.perf_counter()
-            mean = cli.main([mode] + common + extra, observer=probe)
-            torch.cuda.synchronize()
-            res = probe.out
-            res["cli_s"] = time.perf_counter() - t0
-            launches = dict(native.LAUNCHES)
-            res["accuracy"], res["launches"] = mean / 100.0, launches
-            out[mode], c_err = res, max(c_err, probe.c_err)
-            with open(f"{tmp}/results/{mode}_node_{ds.name}.json") as f:
-                written = json.load(f)
-            if sorted(written) != ["accuracy", "mean", "std"] \
-                    or written["mean"] != mean:
-                fail(f"cli.node {mode}: result file holds {written}")
-            if launches.get("fused_cosine_topk", 0) != want_c:
-                fail(f"cli.node {mode}: kernel C launched "
-                     f"{launches.get('fused_cosine_topk', 0)} times, "
-                     f"expected {want_c} (one per retrieve)")
-            if not mean / 100.0 > 0.5:
-                fail(f"cli.node {mode}: accuracy {mean / 100.0} is not above "
-                     f"0.5 (chance 0.33)")
-            for stage in ("library_build_train_s", "library_build_val_s",
-                          "test_accuracy_s"):
-                if len(res.get(stage, ())) != 1:
-                    fail(f"cli.node {mode}: stage {stage} ran "
-                         f"{len(res.get(stage, ()))} times, not once")
-                res[stage] = res[stage][0]
-            print(f"  cli.node {mode}: accuracy {mean / 100.0:.4f} in "
-                  f"{res['cli_s']:.1f} s (checks included), launches "
-                  f"{launches}", flush=True)
-        losses = out["finetune"]["finetune_losses"]
-        if len(losses) != 2 or not np.isfinite(losses).all() \
-                or not losses[-1] < losses[0]:
-            fail(f"node finetune: losses {losses} are not finite and falling")
-        if "finetune_step_ms" not in out["finetune"] \
-                or out["vanilla"]["finetune_losses"]:
-            fail("cli.node: the finetune stages ran in the wrong mode")
-        for bad in (["pretrain"], ["vanilla", "--level", "graph"],
-                    ["vanilla", "--mesh", "dp=1,idx=1"]):
-            try:
-                cli.main(bad + common)
-            except SystemExit as e:
-                if "ROADMAP.md" in str(e):
-                    continue
-            fail(f"cli.node {bad} did not exit with a pointer to ROADMAP.md")
+    tmp = f"{tu_root}/node"
+    common = ["--dataset", ds.name, "--data-root", tu_root, "--save-dir",
+              f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
+              "--hidden", str(NODE_HIDDEN), "--batch-size",
+              str(NODE_BATCH), "--library-capacity", str(NODE_CAPACITY),
+              "--test-times", "1", "--device", str(dev)]
+    for mode, extra, want_c in (
+            ("vanilla", [], test_batches),
+            ("finetune", ["--epochs", "2"],
+             2 * val_batches + test_batches)):
+        probe = Probe(mode)
+        native.reset_launches()
+        t0 = time.perf_counter()
+        mean = cli.main([mode] + common + extra, observer=probe)
+        torch.cuda.synchronize()
+        res = probe.out
+        res["cli_s"] = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        res["accuracy"], res["launches"] = mean / 100.0, launches
+        out[mode], c_err = res, max(c_err, probe.c_err)
+        with open(f"{tmp}/results/{mode}_node_{ds.name}.json") as f:
+            written = json.load(f)
+        if sorted(written) != ["accuracy", "mean", "std"] \
+                or written["mean"] != mean:
+            fail(f"cli.node {mode}: result file holds {written}")
+        if launches.get("fused_cosine_topk", 0) != want_c:
+            fail(f"cli.node {mode}: kernel C launched "
+                 f"{launches.get('fused_cosine_topk', 0)} times, "
+                 f"expected {want_c} (one per retrieve)")
+        if not mean / 100.0 > 0.5:
+            fail(f"cli.node {mode}: accuracy {mean / 100.0} is not above "
+                 f"0.5 (chance 0.33)")
+        for stage in ("library_build_train_s", "library_build_val_s",
+                      "test_accuracy_s"):
+            if len(res.get(stage, ())) != 1:
+                fail(f"cli.node {mode}: stage {stage} ran "
+                     f"{len(res.get(stage, ()))} times, not once")
+            res[stage] = res[stage][0]
+        print(f"  cli.node {mode}: accuracy {mean / 100.0:.4f} in "
+              f"{res['cli_s']:.1f} s (checks included), launches "
+              f"{launches}", flush=True)
+    losses = out["finetune"]["finetune_losses"]
+    if len(losses) != 2 or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        fail(f"node finetune: losses {losses} are not finite and falling")
+    if "finetune_step_ms" not in out["finetune"] \
+            or out["vanilla"]["finetune_losses"]:
+        fail("cli.node: the finetune stages ran in the wrong mode")
+    try:
+        cli.main(["vanilla", "--mesh", "dp=1,idx=1"] + common)
+    except SystemExit as e:
+        if "ROADMAP.md" not in str(e):
+            fail(f"cli.node --mesh exited without a pointer to "
+                 f"ROADMAP.md: {e}")
+    else:
+        fail("cli.node --mesh ran")
     print(json.dumps({"node_path": out}), flush=True)
     return c_err
+
+
+ALL_TERMS = "lp+dgi+graphcl:edge+graphcl:mask+graphcl:node+graphcl:subgraph"
+GRAPH_EPOCHS = 10
+
+
+def phase_graph_level(dev, tu_root):
+    """Node pretraining and the graph level at full width, on phase 9's TU
+    files: ``cli.node pretrain`` (hidden 256, batch 16 padded to 384 nodes,
+    ``--lp-samples 100``) for 3 epochs of ``lp`` (a finite, falling loss),
+    then one epoch of all six terms into the same checkpoint (a finite
+    loss); then ``cli.node vanilla --level graph`` and ``finetune --level
+    graph`` reading that checkpoint, with a 65,536-row library. For time the
+    two run ``--epochs 10 --test-times 1`` (the CLI's defaults are 50 and
+    5). Each graph-level forward retrieves its batch of 16 graph queries
+    through kernel C: one launch per forward, counted; C is held to its
+    plain version on the run's own queries and store and timed alone at
+    that shape beside a ``matmul`` + ``topk`` and two bounds: the valid rows
+    read once (the answer depends on nothing else) and the whole store read
+    once (what C reads). Returns C's largest error and the phase's
+    numbers."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.cli import node as cli
+    from ragraph_tpu_torch.data.batching import stacked_batches
+    from ragraph_tpu_torch.ops.fused_retrieval import (
+        fused_cosine_topk, fused_cosine_topk_plain)
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.rag.library import retrieve
+    print(f"phase 10: node pretraining and the graph level, {NODE_GRAPHS} "
+          f"graphs, hidden {NODE_HIDDEN}, batch {NODE_BATCH}, library "
+          f"capacity {NODE_CAPACITY}", flush=True)
+    ds, (n_train, n_val, n_test) = node_dataset()
+    steps = -(-NODE_GRAPHS // NODE_BATCH)
+    val_batches, test_batches = -(-n_val // NODE_BATCH), \
+        -(-n_test // NODE_BATCH)
+    tmp = f"{tu_root}/graph"
+    common = ["--dataset", ds.name, "--data-root", tu_root, "--save-dir",
+              f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
+              "--hidden", str(NODE_HIDDEN), "--batch-size", str(NODE_BATCH),
+              "--device", str(dev)]
+    out, c_err = {}, 0.0
+
+    # -- pretraining: 3 epochs of lp, then one of every term
+    for tag, terms, epochs in (("lp", "lp", 3), ("all", ALL_TERMS, 1)):
+        probe = TimedObserver()
+        native.reset_launches()
+        path = cli.main(["pretrain", "--pretrain-loss", terms,
+                         "--pretrain-epochs", str(epochs), "--lp-samples",
+                         "100"] + common, observer=probe)
+        with open(f"{tmp}/results/pretrain_{ds.name}.json") as f:
+            written = json.load(f)
+        losses = written["epoch_losses"]
+        if written["loss_terms"] != terms.split("+") \
+                or len(losses) != epochs or not np.isfinite(losses).all() \
+                or (epochs > 1 and not losses[-1] < losses[0]) \
+                or not path.endswith(f"model_{ds.name}.pkl"):
+            fail(f"cli.node pretrain {terms}: wrote {written} to {path}")
+        epoch_s = probe.out["pretrain_epoch_s"]
+        # an epoch's wall time over its steps (the host's tuple sampling
+        # included); the first epoch also warms up
+        step_ms = [1e3 * t / steps for t in epoch_s]
+        out[f"pretrain_{tag}"] = {
+            "epoch_losses": losses, "epoch_s": epoch_s,
+            "steps_per_epoch": steps, "step_ms": step_ms,
+            "launches": dict(native.LAUNCHES)}
+        print(f"  cli.node pretrain {terms}: losses {losses}, step ms "
+              f"{[round(t, 3) for t in step_ms]}", flush=True)
+    out["pretrain_step_ms"] = float(np.mean(out["pretrain_lp"]["step_ms"][1:]))
+
+    # -- the graph level, reading that checkpoint
+    class Probe(TimedObserver, cli.RunObserver):
+        def __init__(self):
+            super().__init__()
+            self.c_err, self.out["finetune_losses"] = 0.0, []
+
+        def after_library_build_train(self, task, state, libcfg, train, val,
+                                      pad):
+            lib = state.library
+            if int(lib.fill) != n_train:
+                fail(f"graph library holds {int(lib.fill)} rows after the "
+                     f"train split, expected {n_train}")
+            batch = next(stacked_batches(val.graphs, NODE_BATCH,
+                                         num_classes=3, num_graph_classes=3,
+                                         device=dev))
+            with torch.no_grad():
+                emb = state.encoder.inference(batch["features"],
+                                              batch["adj"],
+                                              batch["node_mask"])
+            m = batch["node_mask"].to(emb.dtype)[:, :, None]
+            query = (emb * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
+            k = libcfg.retrieve_num
+            q_n, keys_n = l2_normalize(query), l2_normalize(lib.live()[0])
+            valid = lib.valid_mask
+            self.c_err = check_topk(
+                f"C graph shape: Q={query.shape[0]} R={lib.capacity} "
+                f"E={query.shape[1]} k={k} valid={int(lib.fill)}", q_n,
+                keys_n, k, valid)
+            native.reset_launches()
+            rag_emb, rag_labels = retrieve(lib, query, libcfg)
+            torch.cuda.synchronize()
+            if native.LAUNCHES.get("fused_cosine_topk", 0) != 1:
+                fail("graph retrieve did not launch kernel C once")
+            if tuple(rag_emb.shape) != (NODE_BATCH, k, NODE_HIDDEN) \
+                    or not bool((rag_labels.sum(-1) == 1).all()):
+                fail(f"graph retrieve returned {tuple(rag_emb.shape)} and "
+                     f"labels outside the store")
+            self.out["graph_retrieve_ms"] = cuda_ms(
+                lambda: retrieve(lib, query, libcfg))
+            # C alone at this shape: the bf16 rows it reads
+            qh, kh = q_n.to(torch.bfloat16), keys_n.to(torch.bfloat16)
+            qf, kf = qh.float(), kh.float()
+            n_q, e = qh.shape
+            r, fill = kh.shape[0], int(lib.fill)
+
+            def library():
+                sc = torch.where(valid[None, :], qf @ kf.T, -torch.inf)
+                return torch.topk(sc, k, dim=1)
+
+            def bound(rows):
+                """(ms, what binds) for ``rows`` bf16 store rows read once
+                beside the valid mask, the queries and the lists."""
+                b = 2 * n_q * e + 2 * rows * e + r + 8 * n_q * k
+                b_ms, o_ms = (b / HBM_BYTES_PER_MS,
+                              2 * n_q * rows * e / BF16_FLOP_PER_MS)
+                return max(b_ms, o_ms), "bytes" if b_ms >= o_ms \
+                    else "operations"
+            # the answer depends on the valid rows only; C reads and scores
+            # every row of the store and masks the empty ones
+            bound_ms, bound_by = bound(fill)
+            store_ms, store_by = bound(r)
+            self.out["C_graph_shape"] = {
+                "queries": n_q, "rows": r, "width": e, "k": k,
+                "valid_rows": fill,
+                "ms": cuda_ms(lambda: fused_cosine_topk(qh, kh, k, valid)),
+                "device_ms": device_ms(
+                    lambda: fused_cosine_topk(qh, kh, k, valid)),
+                "plain_ms": cuda_ms(lambda: fused_cosine_topk_plain(
+                    qh, kh, k, valid), reps=5),
+                "library_ms": cuda_ms(library),
+                "library_device_ms": device_ms(library),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "store_bound_ms": store_ms, "store_bound_by": store_by,
+                "max_abs_err": self.c_err}
+
+        def after_finetune_epoch(self, losses):
+            self.out["finetune_losses"].append(
+                float(torch.stack(losses).mean()))
+
+        def after_library_build_val(self, task, state, libcfg, train, val,
+                                    pad):
+            if int(state.library.fill) != n_train + n_val:
+                fail(f"graph library holds {int(state.library.fill)} rows "
+                     f"after the val append, expected {n_train + n_val}")
+
+    run = ["--level", "graph", "--library-capacity", str(NODE_CAPACITY),
+           "--test-times", "1"] + common
+    for mode, extra, want_c in (
+            ("vanilla", [], test_batches),
+            ("finetune", ["--epochs", str(GRAPH_EPOCHS)],
+             GRAPH_EPOCHS * val_batches + test_batches)):
+        probe = Probe()
+        native.reset_launches()
+        t0 = time.perf_counter()
+        mean = cli.main([mode] + run + extra, observer=probe)
+        torch.cuda.synchronize()
+        res = probe.out
+        res["cli_s"] = time.perf_counter() - t0
+        res["accuracy"], res["launches"] = mean / 100.0, dict(native.LAUNCHES)
+        c_err = max(c_err, probe.c_err)
+        with open(f"{tmp}/results/{mode}_graph_{ds.name}.json") as f:
+            written = json.load(f)
+        if sorted(written) != ["accuracy", "mean", "std"] \
+                or written["mean"] != mean:
+            fail(f"cli.node {mode} --level graph: result file {written}")
+        n_c = res["launches"].get("fused_cosine_topk", 0)
+        if n_c != want_c:
+            fail(f"cli.node {mode} --level graph: kernel C launched {n_c} "
+                 f"times, expected {want_c} (one per forward)")
+        if not mean / 100.0 > 0.5:
+            fail(f"cli.node {mode} --level graph: accuracy {mean / 100.0} "
+                 f"is not above 0.5 (chance 0.33)")
+        out[f"graph_{mode}"] = res
+        print(f"  cli.node {mode} --level graph: accuracy "
+              f"{mean / 100.0:.4f} in {res['cli_s']:.1f} s (checks "
+              f"included), kernel C launched {n_c} times", flush=True)
+    losses = out["graph_finetune"]["finetune_losses"]
+    if len(losses) != GRAPH_EPOCHS or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0]:
+        fail(f"graph finetune: losses {losses} are not finite and falling")
+    out["graph_retrieve_ms"] = out["graph_vanilla"]["graph_retrieve_ms"]
+    out["accuracy"] = {m: out[f"graph_{m}"]["accuracy"]
+                       for m in ("vanilla", "finetune")}
+    print(json.dumps({"graph_level": out}), flush=True)
+    print(json.dumps({"pretrain_step_ms": out["pretrain_step_ms"],
+                      "graph_retrieve_ms": out["graph_retrieve_ms"],
+                      "graph_accuracy": out["accuracy"]}), flush=True)
+    return c_err, out
 
 
 def phase_timing(dev, graph, errs, launches, probes, skewed):
@@ -2780,7 +3006,11 @@ def main() -> int:
     phase_cli(dev)
     trained = phase_training(dev, train, ds, graph)
     del train
-    errs["C"] = max(errs["C"], phase_node_path(dev))
+    with tempfile.TemporaryDirectory() as tu_root:
+        write_tu_dataset(tu_root, node_dataset()[0])
+        errs["C"] = max(errs["C"], phase_node_path(dev, tu_root))
+        c_err, _ = phase_graph_level(dev, tu_root)
+        errs["C"] = max(errs["C"], c_err)
     kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
     phase_step_timing(dev, trained)
     if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):

@@ -8,9 +8,12 @@ Ported so far: the RAGraph-edge pipeline, serving (``generate`` ->
 ``make_resource_graph`` -> ``generate`` with RAG fusion -> ranking eval and
 ``recommend_from``) and training (``cal_loss``, ``EdgeTrainer``,
 ``staged_finetune``, the ``pretrain``/``finetune``/``vanilla`` CLI); the
-static node pipeline's ``vanilla`` and ``finetune`` modes (``cli/node.py``,
-``models/ragraph_node.py``, ``rag/library.py``); and the bench scripts in
-``bench/``. Its twelve hand-written CUDA kernels live in ``csrc/`` and are
+static node pipeline, node and graph level, with its pretraining
+(``cli/node.py`` ``pretrain``, ``vanilla``, ``finetune``, ``--level``;
+``models/preprompt.py``, ``models/ragraph_node.py``,
+``models/ragraph_graph.py``, ``rag/library.py``, ``rag/pretrain_aug.py``);
+and the bench scripts in ``bench/``. Each subpackage re-exports its public
+names. Its twelve hand-written CUDA kernels live in ``csrc/`` and are
 built lazily by :mod:`ragraph_tpu_torch.native` on the first call that
 needs them; importing this package builds and loads nothing.
 
@@ -18,3 +21,5 @@ Entry points take ``device`` (default ``"cuda"``) and raise when no card is
 present unless the caller asks for ``device="cpu"``, where every kernel
 wrapper runs its plain PyTorch version instead.
 """
+
+from ragraph_tpu_torch.core.graph import DenseGraph, EdgeGraph  # noqa: F401

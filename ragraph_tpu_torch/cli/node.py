@@ -1,21 +1,32 @@
-"""Node-task CLI of the port (counterpart of ``ragraph_tpu/cli/node.py``).
+"""Node- and graph-task CLI of the port (counterpart of
+``ragraph_tpu/cli/node.py``).
 
-``python -m ragraph_tpu_torch.cli.node finetune|vanilla [--noise]`` with the
-JAX CLI's flags plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions of the kernels). Protocol: ``--test-times`` seeded reruns
-with shuffled 0.5/0.3/0.8 splits, the library built from the train split by
-the frozen encoder, (``finetune``: Adam over encoder and decoder on the val
-split,) the val entries appended, accuracy on the test split, then
-``<results-dir>/<tag>_node_<dataset>.json`` with ``mean``, ``std`` and
-``accuracy``.
+``python -m ragraph_tpu_torch.cli.node pretrain|finetune|vanilla [--noise]
+[--level node|graph]`` with the JAX CLI's flags plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels).
+
+- ``pretrain``: the encoder with its pretraining heads, trained by Adam on
+  block-diagonal batches of the whole dataset for ``--pretrain-epochs``
+  under the ``+``-joined ``--pretrain-loss`` terms (``lp``, ``dgi``,
+  ``graphcl[:edge|mask|node|subgraph]``). The epoch with the lowest loss is
+  saved as ``<save-dir>/model_<dataset>.pkl`` (the port's ``state_dict``);
+  ``<results-dir>/pretrain_<dataset>.json`` holds ``loss_terms`` and
+  ``epoch_losses``.
+- ``finetune`` / ``vanilla``: ``--test-times`` seeded reruns with shuffled
+  0.5/0.3/0.8 splits, the library built from the train split by the frozen
+  encoder, (``finetune``: Adam over encoder and decoder on the val split,)
+  the val entries appended, accuracy on the test split, then
+  ``<results-dir>/<tag>_<level>_<dataset>.json`` with ``mean``, ``std`` and
+  ``accuracy``. ``--level graph`` classifies whole graphs
+  (:class:`ragraph_tpu_torch.models.ragraph_graph.RAGraphGraph`) on stacked
+  batches, with the fusion weights of the dataset.
 
 The encoder comes from ``<save-dir>/model_<dataset>.pkl`` (a pickle
-checkpoint of the JAX package's ``PrePrompt`` variables, or of the port's
-``state_dict``) when that file is there, else from a random
-initialisation, as in the JAX CLI.
+checkpoint of the JAX package's ``PrePrompt`` variables, with or without the
+heads, or of the port's ``state_dict``) when that file is there, else from a
+random initialisation, as in the JAX CLI.
 
-Not ported yet, each exiting with a pointer to ROADMAP.md: ``pretrain``,
-``--level graph`` and ``--mesh``.
+Not ported yet, exiting with a pointer to ROADMAP.md: ``--mesh``.
 """
 
 from __future__ import annotations
@@ -35,10 +46,20 @@ from ragraph_tpu_torch.data.batching import flat_batches, stacked_batches
 from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
 from ragraph_tpu_torch.data.tu import load_tu_dataset
 from ragraph_tpu_torch.device import resolve_device
+from ragraph_tpu_torch.models.preprompt import (PrePrompt,
+                                                corrupt_features,
+                                                prompt_pretrain_sample)
+from ragraph_tpu_torch.models.ragraph_graph import (GRAPH_FUSION_WEIGHTS,
+                                                    RAGraphGraph,
+                                                    RAGraphGraphConfig,
+                                                    graph_library_config)
 from ragraph_tpu_torch.models.ragraph_node import (RAGraphNode,
                                                    RAGraphNodeConfig)
 from ragraph_tpu_torch.rag.library import LibraryConfig
-from ragraph_tpu_torch.train.checkpoint import restore_checkpoint
+from ragraph_tpu_torch.rag.pretrain_aug import (FLAVORS, draw_view,
+                                                make_graphcl_views)
+from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
+                                                restore_checkpoint)
 
 log = logging.getLogger("ragraph_tpu_torch.node")
 
@@ -54,8 +75,14 @@ def build_parser():
     p.add_argument("--noise", action="store_true",
                    help="adversarial noise-retrieval fine-tuning")
     p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--pretrain-loss", default="lp",
+                   help="'+'-joined objectives: lp, dgi, graphcl[:FLAVOR] "
+                        "with FLAVOR in {edge,mask,node,subgraph}")
     p.add_argument("--encoder-layers", type=int, default=1)
+    p.add_argument("--lp-samples", type=int, default=100,
+                   help="negatives per node for the Lp pretrain tuples")
     p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--pretrain-epochs", type=int, default=30)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--test-times", type=int, default=5)
@@ -105,10 +132,10 @@ class RunObserver:
     """Hooks of one protocol run; this base class does nothing.
 
     ``stage(name)`` is a context manager round each stage
-    (``library_build_train``, ``finetune_epoch``, ``library_build_val``,
-    ``test_accuracy``); ``after(name, **objects)`` is called after a stage
-    with the objects it made. A subclass can time the stages and inspect
-    the state without a second copy of the protocol.
+    (``pretrain_epoch``; ``library_build_train``, ``finetune_epoch``,
+    ``library_build_val``, ``test_accuracy``); ``after(name, **objects)`` is
+    called after a stage with the objects it made. A subclass can time the
+    stages and inspect the state without a second copy of the protocol.
     """
 
     def stage(self, name: str):
@@ -116,6 +143,97 @@ class RunObserver:
 
     def after(self, name: str, **objects) -> None:
         pass
+
+
+def pretrain_terms(spec: str):
+    """``(terms, graphcl flavors)`` of a ``--pretrain-loss`` value;
+    ``graphcl`` alone is ``graphcl:edge``. An unknown term raises."""
+    terms = spec.split("+")
+    flavors = []
+    for t in terms:
+        if t.startswith("graphcl"):
+            flavor = t.split(":", 1)[1] if ":" in t else "edge"
+            if t not in ("graphcl", f"graphcl:{flavor}") \
+                    or flavor not in FLAVORS:
+                raise ValueError(f"unknown GraphCL term {t!r}")
+            flavors.append(flavor)
+        elif t not in ("lp", "dgi"):
+            raise ValueError(f"unknown pretraining term {t!r}")
+    return terms, flavors
+
+
+def pretrain_loss(model: PrePrompt, terms, flavors, g, tuples,
+                  generator: torch.Generator) -> torch.Tensor:
+    """The summed pretraining loss of one block-diagonal batch ``g``, its
+    random values drawn from ``generator``: the Lp dropout, the DGI
+    shuffle (shared with GraphCL), and two views per GraphCL flavor, made
+    from the normalised batch adjacency (and normalised again)."""
+    total = torch.zeros((), device=g.features.device)
+    if "lp" in terms:
+        total = total + model(g.features, g.adj, tuples, g.node_mask,
+                              generator=generator)
+    if "dgi" in terms or flavors:
+        shuf = corrupt_features(g.features, g.node_mask, generator)
+    if "dgi" in terms:
+        total = total + model.dgi_loss(g.features, shuf, g.adj, g.node_mask)
+    for flavor in flavors:
+        draws = tuple(draw_view(generator, flavor, g.node_mask)
+                      for _ in range(2))
+        v1, v2 = make_graphcl_views(flavor, g.features, g.adj, g.node_mask,
+                                    draws)
+        total = total + model.graphcl_flavor_loss(
+            g.features, shuf, g.adj, v1, v2, g.node_mask, flavor=flavor)
+    return total
+
+
+def run_pretrain(args, terms, flavors, device,
+                 observer: RunObserver | None = None) -> str:
+    """Pretrain the encoder on the loss ``terms`` and GraphCL ``flavors``
+    of :func:`pretrain_terms`; returns the path of the best checkpoint."""
+    obs = observer or RunObserver()
+    rng = np.random.default_rng(args.seed)
+    ds = load_dataset(args)
+    pad = args.batch_size * max(g.features.shape[0] for g in ds.graphs)
+    model = PrePrompt(ds.num_node_attributes, hidden=args.hidden,
+                      num_layers=args.encoder_layers,
+                      generator=torch.Generator().manual_seed(args.seed)
+                      ).to(device)
+    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8)
+    generator = torch.Generator(device).manual_seed(args.seed + 2)
+    keeper = BestCheckpointKeeper(args.save_dir,
+                                  name=f"model_{args.dataset}")
+    # the raw host adjacency comes with each batch, for the tuple sampler
+    batches = list(flat_batches(ds.graphs, args.batch_size, pad,
+                                with_host_adj=True, device=device))
+    masks_host = [g.node_mask.cpu().numpy() for g, _ in batches]
+    epoch_losses = []
+    for epoch in range(args.pretrain_epochs):
+        with obs.stage("pretrain_epoch"):
+            losses = []
+            for (g, raw_adj), mask_host in zip(batches, masks_host):
+                raw = raw_adj > 0
+                np.fill_diagonal(raw, False)
+                tuples = torch.from_numpy(prompt_pretrain_sample(
+                    raw.astype(np.float32), args.lp_samples, rng,
+                    mask_host)).to(device)
+                optimizer.zero_grad(set_to_none=True)
+                loss = pretrain_loss(model, terms, flavors, g, tuples,
+                                     generator)
+                loss.backward()
+                optimizer.step()
+                losses.append(loss.detach())
+        obs.after("pretrain_epoch", losses=losses)
+        # the epoch's one host read of the losses
+        epoch_losses.append(float(torch.stack(losses).mean()))
+        log.info("epoch %d pretrain_loss %.6f", epoch, epoch_losses[-1])
+        keeper.update(-epoch_losses[-1], model.state_dict())
+    os.makedirs(args.results_dir, exist_ok=True)
+    out = os.path.join(args.results_dir, f"pretrain_{args.dataset}.json")
+    with open(out, "w") as f:
+        json.dump({"loss_terms": terms, "epoch_losses": epoch_losses}, f,
+                  indent=4)
+    log.info("saved best pretrain checkpoint: %s", keeper.path)
+    return keeper.path
 
 
 def eval_once(args, ds, encoder_state, seed_i: int, device,
@@ -129,15 +247,28 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
     finetune = args.mode == "finetune"
     num_class = max(ds.num_node_classes, ds.num_graph_classes, 2)
 
-    libcfg = LibraryConfig(level="node", retrieve_num=num_class + 1,
-                           toy_graph_hop=2,
-                           retrieve_dtype=args.retrieve_dtype,
-                           retrieve_rescore_pad=args.retrieve_rescore_pad)
-    cfg = RAGraphNodeConfig(emb_size=args.hidden, num_class=num_class,
-                            finetune=finetune, noise_finetune=args.noise,
-                            encoder_layers=args.encoder_layers,
-                            library=libcfg)
-    task = RAGraphNode(cfg, feature_dim=ds.num_node_attributes, device=device)
+    retr = dict(retrieve_dtype=args.retrieve_dtype,
+                retrieve_rescore_pad=args.retrieve_rescore_pad)
+    if args.level == "node":
+        libcfg = LibraryConfig(level="node", retrieve_num=num_class + 1,
+                               toy_graph_hop=2, **retr)
+        cfg = RAGraphNodeConfig(emb_size=args.hidden, num_class=num_class,
+                                finetune=finetune, noise_finetune=args.noise,
+                                encoder_layers=args.encoder_layers,
+                                library=libcfg)
+        task = RAGraphNode(cfg, feature_dim=ds.num_node_attributes,
+                           device=device)
+    else:
+        rw, lw = GRAPH_FUSION_WEIGHTS.get(args.dataset, (0.3, 0.3))
+        libcfg = graph_library_config(num_class, **retr)
+        cfg = RAGraphGraphConfig(emb_size=args.hidden, num_class=num_class,
+                                 retrieve_weight=rw, label_weight=lw,
+                                 finetune=finetune,
+                                 noise_finetune=args.noise,
+                                 encoder_layers=args.encoder_layers,
+                                 library=libcfg)
+        task = RAGraphGraph(cfg, feature_dim=ds.num_node_attributes,
+                            device=device)
     state = task.init_state(torch.Generator().manual_seed(seed_i),
                             encoder_state=encoder_state,
                             library_capacity=args.library_capacity)
@@ -149,6 +280,14 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
         return stacked_batches(graphs, args.batch_size, num_classes=num_class,
                                num_graph_classes=num_class, device=device)
 
+    def task_batches(graphs):
+        """The node task's block-diagonal batches, the graph task's
+        stacked ones."""
+        if args.level == "node":
+            return flat_batches(graphs, args.batch_size, pad,
+                                num_classes=num_class, device=device)
+        return lib_batches(graphs)
+
     with obs.stage("library_build_train"):
         state = task.build_library(state, lib_batches(train.graphs),
                                    gen(seed_i + 1))
@@ -157,8 +296,7 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
 
     if finetune:
         optimizer = task.make_optimizer(state, args.lr)
-        batches = list(flat_batches(val.graphs, args.batch_size, pad,
-                                    num_classes=num_class, device=device))
+        batches = list(task_batches(val.graphs))
         noise_gen = gen(seed_i + 2)
         for epoch in range(args.epochs):
             with obs.stage("finetune_epoch"):
@@ -178,9 +316,7 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
     obs.after("library_build_val", task=task, state=state, libcfg=libcfg,
               train=train, val=val, pad=pad)
     with obs.stage("test_accuracy"):
-        acc = task.accuracy(state, flat_batches(test.graphs, args.batch_size,
-                                                pad, num_classes=num_class,
-                                                device=device))
+        acc = task.accuracy(state, task_batches(test.graphs))
     return acc
 
 
@@ -213,17 +349,16 @@ def main(argv=None, observer: RunObserver | None = None):
                             stream=sys.stderr)
     if args.retrieve_rescore_pad and args.retrieve_dtype != "int8":
         parser.error("--retrieve-rescore-pad requires --retrieve-dtype int8")
-    for flag, what in ((args.mode == "pretrain",
-                        "node pretraining (the Lp, DGI and GraphCL heads) "
-                        "is not ported yet: ROADMAP.md, queue 1, item 5"),
-                       (args.level == "graph",
-                        "--level graph is not ported yet: ROADMAP.md, "
-                        "queue 1, item 5"),
-                       (args.mesh is not None,
-                        "--mesh is not ported yet: ROADMAP.md, queue 1, "
-                        "item 10")):
-        if flag:
-            raise SystemExit(what)
+    if args.mesh is not None:
+        raise SystemExit("--mesh is not ported yet: ROADMAP.md, queue 1, "
+                         "item 10")
+    if args.mode == "pretrain":
+        try:
+            terms, flavors = pretrain_terms(args.pretrain_loss)
+        except ValueError as e:
+            parser.error(str(e))
+        return run_pretrain(args, terms, flavors, resolve_device(args.device),
+                            observer)
     return run_eval(args, resolve_device(args.device), observer)
 
 

@@ -70,13 +70,33 @@ def int8_keys_from_jax(table, device: str | torch.device = "cuda"
     return torch.from_numpy(table).to(resolve_device(device))
 
 
-# Heads of the JAX ``PrePrompt`` tree that the port does not use yet (the
-# pretraining heads): skipped by name.
-_PREPROMPT_SKIPPED = ("lp", "dgi", "graphcl_edge", "graphcl_mask")
+# The pretraining heads of the JAX ``PrePrompt`` tree: a ``prompt`` each,
+# and a ``BilinearDiscriminator_0`` for all but ``lp``.
+_PREPROMPT_HEADS = ("lp", "dgi", "graphcl_edge", "graphcl_mask")
 
 
 def _np32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _head_params(name: str, sub: dict) -> dict:
+    """One head's entries: ``prompt`` as is, and the discriminator's
+    ``bilinear_w`` (in the orientation both packages use) and scalar
+    ``bilinear_b`` under ``disc``."""
+    want = {"prompt"} if name == "lp" \
+        else {"prompt", "BilinearDiscriminator_0"}
+    if set(sub) != want:
+        raise ValueError(f"{name}: entries {sorted(sub)}, expected "
+                         f"{sorted(want)}")
+    out = {f"{name}.prompt": _np32(sub["prompt"])}
+    if name != "lp":
+        disc = sub["BilinearDiscriminator_0"]
+        if set(disc) != {"bilinear_w", "bilinear_b"}:
+            raise ValueError(f"{name}/BilinearDiscriminator_0: entries "
+                             f"{sorted(disc)}")
+        out[f"{name}.disc.bilinear_w"] = _np32(disc["bilinear_w"])
+        out[f"{name}.disc.bilinear_b"] = _np32(disc["bilinear_b"])
+    return out
 
 
 def preprompt_params_from_jax(variables: dict) -> dict:
@@ -85,16 +105,20 @@ def preprompt_params_from_jax(variables: dict) -> dict:
     "batch_stats": ...}``, as its pickle checkpoints hold them) into a
     ``state_dict`` for :class:`ragraph_tpu_torch.models.preprompt.PrePrompt`
     (CPU tensors). ``Dense_0/kernel`` is ``(in, out)`` and becomes the
-    ``(out, in)`` ``lin.weight``. The pretraining heads are skipped by name;
-    any other unknown entry raises. Batch-norm entries that the tree lacks
-    (an encoder initialised through ``inference`` has none) keep the
-    module's defaults: pass the result to ``load_state_dict(...,
-    strict=False)`` or through :func:`complete_preprompt_state`."""
+    ``(out, in)`` ``lin.weight``; the pretraining heads (``lp``, ``dgi``,
+    ``graphcl_edge``, ``graphcl_mask``) convert as they are; any other
+    entry raises. Entries the tree lacks (an encoder initialised through
+    ``inference`` has no heads and no batch norms) keep the module's
+    defaults: pass the result to ``load_state_dict(..., strict=False)`` or
+    through :func:`complete_preprompt_state`."""
     params = variables.get("params", variables)
-    unknown = set(params) - {"gcn"} - set(_PREPROMPT_SKIPPED)
+    unknown = set(params) - {"gcn"} - set(_PREPROMPT_HEADS)
     if unknown or "gcn" not in params:
         raise ValueError(f"not a PrePrompt tree: entries {sorted(params)}")
     out = {}
+    for name in _PREPROMPT_HEADS:
+        if name in params:
+            out.update(_head_params(name, params[name]))
     for name, sub in params["gcn"].items():
         kind, _, i = name.partition("_")
         if kind == "conv" and i.isdigit():
@@ -124,8 +148,8 @@ def preprompt_params_from_jax(variables: dict) -> dict:
 
 def complete_preprompt_state(partial: dict, module) -> dict:
     """``partial`` filled up with ``module``'s own values for the entries it
-    lacks (the batch norms of a tree that never ran them); an entry that
-    ``module`` does not have raises."""
+    lacks (the batch norms and heads of a tree that never ran them); an
+    entry that ``module`` does not have raises."""
     full = {k: v.detach().cpu().clone()
             for k, v in module.state_dict().items()}
     unknown = set(partial) - set(full)

@@ -55,8 +55,9 @@ class RAGraphNodeState:
     library: ToyGraphLibrary
 
     def parameters(self):
-        """The trained parameters: encoder, then decoder."""
-        return list(self.encoder.parameters()) \
+        """The finetuned parameters: the encoder's GCN stack, then the
+        decoder (the pretraining heads take no part downstream)."""
+        return list(self.encoder.gcn.parameters()) \
             + list(self.decoder.parameters())
 
 
@@ -162,13 +163,13 @@ class RAGraphNode:
         return torch.optim.Adam(state.parameters(), lr=lr, eps=1e-8)
 
     def train_step(self, state: RAGraphNodeState,
-                   optimizer: torch.optim.Optimizer, graph: DenseGraph,
+                   optimizer: torch.optim.Optimizer, batch,
                    generator: torch.Generator | None = None,
-                   noise_idx: torch.Tensor | None = None) -> torch.Tensor:
+                   **draws) -> torch.Tensor:
         """One Adam step, in place; returns the loss before the step (a
-        device scalar)."""
+        device scalar). ``draws`` go to :meth:`loss` (``noise_idx``)."""
         optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(state, graph, generator, noise_idx)
+        loss = self.loss(state, batch, generator, **draws)
         loss.backward()
         optimizer.step()
         return loss.detach()

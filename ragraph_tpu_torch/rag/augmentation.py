@@ -1,7 +1,9 @@
 """Library-build augmentations (counterpart of
-``ragraph_tpu/rag/augmentation.py``): ``augment_features`` and
-``augment_adj``. Each draws from the caller's generator, or takes its
-draws as arguments. Inputs may carry leading batch dimensions."""
+``ragraph_tpu/rag/augmentation.py``): ``augment_features``,
+``augment_adj``, the mixup node insertion ``interpolation_node`` and the
+copy generator ``augment_graph``. Each draws from the caller's generator,
+or takes its draws as arguments. ``augment_features`` and ``augment_adj``
+take leading batch dimensions."""
 
 from __future__ import annotations
 
@@ -55,3 +57,53 @@ def augment_adj(generator: torch.Generator | None, adj: torch.Tensor,
         m = node_mask.to(adj.dtype)
         new_adj = new_adj * m[..., :, None] * m[..., None, :]
     return new_adj
+
+
+def interpolation_node(generator: torch.Generator | None,
+                       features: torch.Tensor, adj: torch.Tensor,
+                       interpolation_num: int = 5, alpha: float = 0.5, *,
+                       pairs: torch.Tensor | None = None):
+    """Mixup node insertion into ``interpolation_num`` extra rows of one
+    graph ``features (N, F)``, ``adj (N, N)``: row ``N + i`` gets ``alpha *
+    x[src] + (1 - alpha) * x[dst]`` and symmetric edges of weight ``alpha``
+    to ``src`` and ``1 - alpha`` to ``dst``, for the ``i``-th of ``pairs
+    (interpolation_num, 2)`` (node indices, drawn uniformly when not
+    given). Returns ``(features (N + n, F), adj (N + n, N + n))``."""
+    n, f = features.shape
+    if pairs is None:
+        pairs = torch.randint(0, n, (interpolation_num, 2),
+                              generator=_need(generator,
+                                              "interpolation_node"),
+                              device=features.device)
+    new_f = features.new_zeros((n + interpolation_num, f))
+    new_f[:n] = features
+    new_a = adj.new_zeros((n + interpolation_num,) * 2)
+    new_a[:n, :n] = adj
+    for i in range(interpolation_num):     # later pairs overwrite earlier
+        src, dst = pairs[i, 0].long(), pairs[i, 1].long()
+        row = n + i
+        new_f[row] = alpha * features[src] + (1 - alpha) * features[dst]
+        new_a[row, src] = alpha
+        new_a[src, row] = alpha
+        new_a[row, dst] = 1 - alpha
+        new_a[dst, row] = 1 - alpha
+    return new_f, new_a
+
+
+def augment_graph(generator: torch.Generator | None, num_augment_scale: int,
+                  features: torch.Tensor, adj: torch.Tensor,
+                  sample_prob: torch.Tensor,
+                  node_mask: torch.Tensor | None = None, draws=None):
+    """Yield ``(features, adj)`` for the original graph, then for
+    ``num_augment_scale`` augmented copies (:func:`augment_features`, then
+    :func:`augment_adj`). ``draws`` may give each copy's draws, a sequence
+    of dicts with ``noise``, ``keep_u`` and ``u``; what is missing is
+    drawn from ``generator``."""
+    yield features, adj
+    for i in range(num_augment_scale):
+        d = draws[i] if draws is not None else {}
+        yield (augment_features(generator, features, sample_prob,
+                                noise=d.get("noise"),
+                                keep_u=d.get("keep_u")),
+               augment_adj(generator, adj, sample_prob, node_mask,
+                           u=d.get("u")))

@@ -16,8 +16,7 @@
   noise modes.
 
 Every function that draws takes its draws as an optional argument and
-otherwise draws from the caller's ``torch.Generator``. ``level="graph"``
-entries are not ported yet (ROADMAP.md, queue 1, item 5).
+otherwise draws from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -157,15 +156,17 @@ def build_entries_batch(encoder_fn: Callable, features: torch.Tensor,
     """Entries for a whole batch of padded graphs, all copies.
 
     ``features (B, N, F)``; ``adjs (B, N, N)`` normalized clean adjacency;
-    ``labels (B, N, C)``; ``node_masks (B, N)``; ``graph_onehots`` is read
-    only by graph-level libraries. ``encoder_fn(features, adj)`` must take
-    leading batch dimensions.
+    ``labels (B, N, C)``; ``node_masks (B, N)``; ``graph_onehots (B, C)``
+    is read only by graph-level libraries (zeros when None).
+    ``encoder_fn(features, adj)`` must take leading batch dimensions.
 
     Copy 0 of a graph is the graph itself; copies ``1..num_augment_scale``
     have augmented features and a rewritten adjacency. With
     ``num_inverse_sample > 0`` each copy contributes that many nodes drawn
     by inverse importance, with the *clean* adjacency restricted to them;
-    otherwise every real node.
+    otherwise every real node. A graph-level library (``cfg.level ==
+    "graph"``) pools each copy's valid rows into one mean entry whose label
+    is the graph's one-hot label; a padding graph yields no entry.
 
     ``draws`` may hold any of the random values, each ``(B, copies, ...)``
     (entries of copy 0 that augmentation would use are ignored):
@@ -177,10 +178,8 @@ def build_entries_batch(encoder_fn: Callable, features: torch.Tensor,
     Returns ``(keys, values, labels, positions, valid)`` flattened to
     ``(B * copies * rows, ...)``, graph-major, then copy, then row.
     """
-    if cfg.level != "node":
-        raise NotImplementedError(
-            "graph-level library entries are not ported yet: see ROADMAP.md, "
-            "queue 1, item 5")
+    if cfg.level not in ("node", "graph"):
+        raise ValueError(f"unknown library level {cfg.level!r}")
     draws = draws or {}
     b, n_pad, _ = features.shape
     copies = 1 + cfg.num_augment_scale
@@ -242,6 +241,17 @@ def build_entries_batch(encoder_fn: Callable, features: torch.Tensor,
             generator=generator)
     else:
         positions_ = keys_.new_zeros((*keys_.shape[:-1], cfg.num_anchors))
+
+    if cfg.level == "graph":
+        m = sample_mask.to(keys_.dtype)[..., None]          # (B, copies, S, 1)
+        denom = torch.clamp_min(m.sum(dim=-2), 1.0)
+        keys_ = ((keys_ * m).sum(dim=-2) / denom)[..., None, :]
+        values_ = ((values_ * m).sum(dim=-2) / denom)[..., None, :]
+        if graph_onehots is None:
+            graph_onehots = features.new_zeros((b, labels.shape[-1]))
+        labels_ = expand(graph_onehots.to(keys_.dtype))[..., None, :]
+        positions_ = keys_.new_zeros((b, copies, 1, cfg.num_anchors))
+        valid = graph_valid[..., None]
 
     return tuple(x.reshape(-1, *x.shape[3:]) for x in
                  (keys_, values_, labels_, positions_, valid))

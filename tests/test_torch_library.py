@@ -245,11 +245,55 @@ def test_build_entries_batch_draws_its_own():
     with pytest.raises(ValueError):
         tlib.build_entries_batch(t_fn, tb["features"], tb["adj"],
                                  tb["labels"], tb["node_mask"], None, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # graph level: one pooled entry per graph and copy, drawn likewise
+    gcfg = tlib.LibraryConfig(level="graph")
+    ga, gb = (tlib.build_entries_batch(
+        t_fn, tb["features"], tb["adj"], tb["labels"], tb["node_mask"],
+        tb["graph_onehot"], gcfg, torch.Generator().manual_seed(s))
+        for s in (0, 0))
+    assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+    assert ga[0].shape == (4 * 4, 8) and bool(ga[4].all())
+    with pytest.raises(ValueError, match="level"):
         tlib.build_entries_batch(
             t_fn, tb["features"], tb["adj"], tb["labels"], tb["node_mask"],
-            tb["graph_onehot"], tlib.LibraryConfig(level="graph"),
+            tb["graph_onehot"], tlib.LibraryConfig(level="edge"),
             torch.Generator())
+
+
+@pytest.mark.parametrize("inverse,augment,positions", [
+    (0, 0, False), (10, 3, True), (0, 2, True)])
+def test_build_entries_batch_graph_level(inverse, augment, positions):
+    """Graph-level entries against JAX's with its draws handed over: one
+    mean-pooled key and value per graph and copy, the graph's one-hot
+    label, zero positions; the padding graph yields no entry."""
+    ds = synthetic_tu_dataset(seed=5, num_graphs=3, min_nodes=5,
+                              max_nodes=11, feat_dim=6)
+    jcfg = jlib.LibraryConfig(level="graph", num_inverse_sample=inverse,
+                              num_augment_scale=augment,
+                              use_positions=positions, num_anchors=5,
+                              dis_q=4, toy_graph_hop=1)
+    tcfg = tlib.LibraryConfig(**dataclasses.asdict(jcfg))
+    jb = next(jbatch.stacked_batches(ds.graphs, 4, num_classes=3))
+    tb = next(tbatch.stacked_batches(ds.graphs, 4, num_classes=3))
+    j_fn, t_fn = _encoders(6, 8)
+    key = jax.random.key(13)
+    want = jlib.build_entries_batch(
+        j_fn, jb["features"], jb["adj"], jb["labels"], jb["node_mask"],
+        jb["graph_onehot"], jcfg, key)
+    with torch.no_grad():
+        got = tlib.build_entries_batch(
+            t_fn, tb["features"], tb["adj"], tb["labels"], tb["node_mask"],
+            tb["graph_onehot"], tcfg, draws=_jax_draws(key, jb, jcfg))
+    rows = 4 * (1 + augment)
+    valid = np.asarray(want[4])
+    assert got[4].shape == (rows,)
+    np.testing.assert_array_equal(got[4].numpy(), valid)
+    assert valid.sum() == 3 * (1 + augment)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_array_equal(got[3].numpy(), np.zeros((rows, 5)))
+    for g, w in zip(got[:2], want[:2]):
+        assert tuple(g.shape) == tuple(w.shape) == (rows, 8)
+        _close(g[_t(valid)], np.asarray(w)[valid], 1e-6)
 
 
 def test_build_library_fills_and_clamps():

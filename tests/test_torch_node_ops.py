@@ -547,3 +547,98 @@ def test_augmentations_with_jax_draws():
     a = taug.augment_adj(g, _t(adj), _t(prob), _t(mask))
     assert set(a.unique().tolist()) <= {0.0, 1.0}
     assert bool((a[~_t(mask)] == 0).all())
+
+
+# ---- the rest of the public functions ---------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_jaccard_similarity(seed):
+    from ragraph_tpu.ops.similarity import jaccard_similarity as j_jaccard
+    from ragraph_tpu_torch.ops.similarity import jaccard_similarity
+    adj, _, _ = _graph(seed, n=14, n_real=11)
+    adj[3] = adj[:, 3] = 0.0            # an isolated node: empty unions
+    adj = adj * np.float32(0.7)         # weights: only the pattern counts
+    want = np.asarray(j_jaccard(jnp.asarray(adj)))
+    got = jaccard_similarity(_t(adj))
+    _close(got, want, 1e-7)
+    assert float(got[3].abs().sum()) == 0 and bool((got <= 1).all())
+
+
+@pytest.mark.parametrize("num,alpha", [(5, 0.5), (3, 0.3)])
+def test_interpolation_node(num, alpha):
+    """Mixup rows on JAX's pairs; a pair with src == dst gets the dst
+    edge's weight, which is written last."""
+    adj, _, x = _graph(4, n=10, n_real=10)
+    key = jax.random.key(num)
+    wf, wa = jaug.interpolation_node(key, jnp.asarray(x), jnp.asarray(adj),
+                                     num, alpha)
+    pairs = np.array(jax.random.randint(key, (num, 2), 0, 10))
+    gf, ga = taug.interpolation_node(None, _t(x), _t(adj), num, alpha,
+                                     pairs=_t(pairs))
+    _close(gf, wf, 1e-7)
+    _close(ga, wa, 0)
+    same = np.array([[2, 2]] + [[0, 1]] * (num - 1))
+    gf, ga = taug.interpolation_node(None, _t(x), _t(adj), num, alpha,
+                                     pairs=_t(same))
+    assert float(ga[10, 2]) == pytest.approx(1 - alpha)
+    _close(gf[10], x[2], 1e-6)
+    drawn = taug.interpolation_node(torch.Generator().manual_seed(0), _t(x),
+                                    _t(adj), num, alpha)
+    assert drawn[0].shape == (10 + num, 5) and drawn[1].shape == (10 + num,
+                                                                  10 + num)
+    with pytest.raises(ValueError):
+        taug.interpolation_node(None, _t(x), _t(adj), num, alpha)
+
+
+def test_augment_graph_with_jax_draws():
+    """The original graph first, then each copy from JAX's per-copy keys
+    (``fold_in(key, i)``, split into a feature and an adjacency key)."""
+    adj, mask, x = _graph(8)
+    prob = np.asarray(jpr.inverse_sample_prob_dense(jnp.asarray(adj),
+                                                    jnp.asarray(mask))) * 40
+    key = jax.random.key(2)
+    want = list(jaug.augment_graph(key, 2, jnp.asarray(x), jnp.asarray(adj),
+                                   jnp.asarray(prob), jnp.asarray(mask)))
+    draws = []
+    for i in range(2):
+        k_f, k_a = jax.random.split(jax.random.fold_in(key, i))
+        k_noise, k_drop = jax.random.split(k_f)
+        draws.append({"noise": _t(jax.random.normal(k_noise, x.shape)),
+                      "keep_u": _t(jax.random.uniform(k_drop, prob.shape)),
+                      "u": _t(jax.random.uniform(k_a, adj.shape))})
+    got = list(taug.augment_graph(None, 2, _t(x), _t(adj), _t(prob),
+                                  _t(mask), draws=draws))
+    assert len(got) == len(want) == 3
+    assert got[0][0] is not None and torch.equal(got[0][1], _t(adj))
+    for (gf, ga), (wf, wa) in zip(got, want):
+        _close(gf, wf, 1e-6)
+        _close(ga, wa, 0)
+    own = list(taug.augment_graph(torch.Generator().manual_seed(1), 1,
+                                  _t(x), _t(adj), _t(prob), _t(mask)))
+    assert len(own) == 2 and own[1][1].shape == adj.shape
+
+
+def test_package_reexports():
+    """Each subpackage re-exports the public names of its ported modules,
+    the JAX package's ``__init__`` lists where the module is ported."""
+    import importlib
+
+    import ragraph_tpu_torch as port
+    for sub, names in {
+            "core": ["DenseGraph", "normalize_adj_dense", "segment_mean"],
+            "data": ["flat_batches", "load_tu_dataset", "load_edge_dataset",
+                     "synthetic_tu_dataset"],
+            "nn": ["DenseGAT", "BilinearDiscriminator2", "GCNStack",
+                   "compare_loss", "LoRAFactors", "learned_gate"],
+            "rag": ["LibraryConfig", "retrieve", "interpolation_node",
+                    "augment_graph", "make_graphcl_views"],
+            "models": ["PrePrompt", "prompt_pretrain_sample", "RAGraphNode",
+                       "RAGraphGraph", "GRAPH_FUSION_WEIGHTS"],
+            "ops": ["cosine_topk", "jaccard_similarity", "fused_cosine_topk",
+                    "pagerank_dense", "position_aware_codes",
+                    "streaming_cumsum"]}.items():
+        mod = importlib.import_module(f"ragraph_tpu_torch.{sub}")
+        for name in names:
+            assert callable(getattr(mod, name)) or isinstance(
+                getattr(mod, name), dict), (sub, name)
+    assert port.DenseGraph is tgraph.DenseGraph

@@ -239,8 +239,9 @@ def test_node_model_defaults_to_the_card():
 
 def test_preprompt_conversion_skips_heads_by_name():
     """The full tree of the JAX ``PrePrompt`` (all heads initialised): the
-    encoder converts, the pretraining heads are skipped by name, anything
-    else raises; ``embed``, ``encode`` and ``decode`` agree."""
+    encoder and the pretraining heads convert (a head the port does not
+    know still raises), and the port loads the result strictly;
+    ``embed``, ``encode`` and ``decode`` agree."""
     ds = synthetic_tu_dataset(seed=2, num_graphs=4)
     jg = next(jbatch.flat_batches(ds.graphs, 4, num_classes=CLASSES))
     tg = next(tbatch.flat_batches(ds.graphs, 4, num_classes=CLASSES))
@@ -253,8 +254,13 @@ def test_preprompt_conversion_skips_heads_by_name():
     assert {"lp", "dgi", "graphcl_edge", "graphcl_mask"} <= set(
         host["params"])
     state = preprompt_params_from_jax(host)
+    assert {"lp.prompt", "dgi.disc.bilinear_w", "graphcl_edge.prompt",
+            "graphcl_mask.disc.bilinear_b"} <= set(state)
+    np.testing.assert_array_equal(
+        state["dgi.disc.bilinear_w"].numpy(),
+        host["params"]["dgi"]["BilinearDiscriminator_0"]["bilinear_w"])
     port = t_preprompt.PrePrompt(FEAT, HIDDEN, 2)
-    port.load_state_dict(state)             # complete: the tree has the bns
+    port.load_state_dict(state)             # complete: bns and heads
     ja = (jg.features, jg.adj, jg.node_mask)
     ta = (tg.features, tg.adj, tg.node_mask)
     with torch.no_grad():
@@ -274,17 +280,6 @@ def test_preprompt_conversion_skips_heads_by_name():
         preprompt_params_from_jax(bad)
     with pytest.raises(ValueError):
         complete_preprompt_state({"gcn.convs.9.bias": torch.zeros(1)}, port)
-
-
-def test_pretraining_side_points_at_the_roadmap():
-    port = t_preprompt.PrePrompt(FEAT, HIDDEN)
-    x = torch.zeros(4, FEAT)
-    for call in (lambda: port(x, torch.eye(4), None),
-                 lambda: port.dgi_loss(x, x, torch.eye(4)),
-                 lambda: port.graphcl_loss(x, x, torch.eye(4), None, None),
-                 lambda: t_preprompt.prompt_pretrain_sample(None, 3, None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
 
 
 # ---- the CLIs --------------------------------------------------------------------
@@ -350,8 +345,6 @@ def test_node_cli_matches_jax(tmp_path, monkeypatch, mode, tag, extra):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["pretrain"], "pretrain"),
-    (["vanilla", "--level", "graph"], "--level graph"),
     (["finetune", "--mesh", "dp=1,idx=1"], "--mesh")])
 def test_node_cli_unported_exits_point_at_the_roadmap(argv, what):
     with pytest.raises(SystemExit) as exc:
@@ -361,7 +354,7 @@ def test_node_cli_unported_exits_point_at_the_roadmap(argv, what):
 
 def test_node_cli_random_encoder_and_flags(tmp_path):
     """No checkpoint: a random encoder, as in the JAX CLI; the parser takes
-    the JAX CLI's flags of the ported modes; the rescore pad needs int8."""
+    every flag of the JAX CLI; the rescore pad needs int8."""
     mean = t_cli.main(["vanilla", "--hidden", "16", "--test-times", "1",
                        "--save-dir", str(tmp_path / "none"), "--results-dir",
                        str(tmp_path), "--device", "cpu",
@@ -369,8 +362,7 @@ def test_node_cli_random_encoder_and_flags(tmp_path):
     assert mean > 50.0
     j_flags = {a.dest for a in j_cli.build_parser()._actions}
     t_flags = {a.dest for a in t_cli.build_parser()._actions}
-    assert j_flags - t_flags == {"pretrain_loss", "lp_samples",
-                                 "pretrain_epochs"}
+    assert j_flags - t_flags == set()
     assert t_flags - j_flags == {"device"}
     with pytest.raises(SystemExit):
         t_cli.main(["vanilla", "--retrieve-rescore-pad", "4", "--device",
