@@ -13,9 +13,10 @@ Phases (any failure exits non-zero):
    and K run at the main path's width;
 2. hold each of the twelve kernels against its plain PyTorch version on the
    card, at its path's shapes and at ragged small shapes (kernels A and K
-   also on a skewed graph of the same size, phase 2b, with rows of up to
-   about 37,000 edges, which their walk cuts into pieces; K bit for bit
-   kernel A, and two calls of either giving the same bits); kernel D's maxima
+   also on two skewed graphs of the same size, phase 2b, degree exponents
+   0.8 and 1.0, with rows of up to about 37,000 and 160,000 edges, which
+   their walk cuts into pieces, held to float64 sums; K bit for bit kernel
+   A, and two calls of either giving the same bits); kernel D's maxima
    against the maxima of kernel F's scores, bit for bit; the bucket family
    against a dense reference, its top-1 bit for bit kernel D's largest
    maximum; the three probe kernels also against their neighbours (J
@@ -72,7 +73,17 @@ Phases (any failure exits non-zero):
    65,536-row library: kernel C launched once per forward and held to its
    plain version on the run's graph queries and store, timed there beside
    its bound, an accuracy above 0.5, the pretrain step and the graph
-   ``retrieve`` timed.
+   ``retrieve`` timed;
+11. the fewshot pipeline on the same files: ``cli.node pretrain
+   --encoder-layers 2`` (2 epochs of ``lp``, a falling loss), then
+   ``cli.fewshot vanilla`` and ``finetune`` at ``--level node`` and
+   ``--level graph`` from that checkpoint (hidden 256, 5 shots, a
+   65,536-row library, ``--epochs 5 --test-times 2``): the checkpoint
+   loaded, the library's fill after each append, a loss falling in each
+   task, accuracies above chance, and no kernel launched (the fewshot
+   retrieval is the structure branch: two matmuls and ``torch.topk``); the
+   library build, one structure ``retrieve``, the finetune step and each
+   run timed.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -276,35 +287,62 @@ def segsum_f64(table, w, idx, indptr, bf16):
                           t[idx.long()].double() * ww.double()[:, None])
 
 
+SKEW_ALPHAS = (0.8, 1.0)     # degree exponents of phase 2b's graphs
+
+
 def phase_skewed(rng, dev):
-    """Kernels A and K on a graph with hub rows: N = 262,144 rows, 2^21
+    """Kernels A and K on graphs with hub rows: N = 262,144 rows, 2^21
     edges, receivers and senders each drawn with probability proportional
-    to (rank + 1)^-0.8 (``bench.csr_walk.skewed_graph``; the largest row
-    about 37,000 edges). A's forward (bf16 and f32) and backward (the same
-    op in sender order) and K, with the parity split and with both weights,
-    against the plain versions' terms summed in float64 at TOL_SEGSUM (the
-    plain versions' own f32 ``index_add_`` strays by about 1e-3 over a row
-    of 37,000 terms, printed beside); K with the parity split equal to A bit
-    for bit; two calls giving the same bits; empty rows zero rows."""
+    to (rank + 1)^-alpha (``bench.csr_walk.skewed_graph``), at each exponent
+    of ``SKEW_ALPHAS``: the largest row about 37,000 edges at 0.8 and
+    160,000 at 1.0. Returns the 0.8 graph, which phase 7 times."""
+    import torch
+
+    from ragraph_tpu_torch.bench import csr_walk
+    t0 = time.perf_counter()
+    print("phase 2b: kernels A and K on skewed graphs", flush=True)
+    errs, kept = {}, None
+    for alpha in SKEW_ALPHAS:
+        g_rng = rng if alpha == csr_walk.ALPHA \
+            else np.random.default_rng(SEED + 41)
+        sk = {k: torch.from_numpy(v).to(dev) for k, v in
+              csr_walk.skewed_graph(g_rng, alpha=alpha).items()}
+        errs[f"alpha={alpha}"] = skewed_checks(sk, dev, alpha)
+        if alpha == csr_walk.ALPHA:
+            kept = sk
+        del sk
+        torch.cuda.empty_cache()
+    print(json.dumps({"skewed_max_abs_err": errs,
+                      "skewed_phase_s": time.perf_counter() - t0}),
+          flush=True)
+    return kept
+
+
+def skewed_checks(sk, dev, alpha):
+    """On one skewed graph ``sk``: A's forward (bf16 and f32) and backward
+    (the same op in sender order) and K, with the parity split and with
+    both weights, against the plain versions' terms summed in float64 at
+    TOL_SEGSUM (the plain versions' own f32 ``index_add_`` strays by up to
+    about 1e-2 over a row of 37,000 terms and 0.3 over one of 160,000,
+    printed beside); K with the parity split equal to A bit for bit; two calls giving the same bits; empty
+    rows zero rows. Returns the largest errors."""
     import torch
 
     from ragraph_tpu_torch.bench import csr_walk
     from ragraph_tpu_torch.ops import csr_segment as cs
     from ragraph_tpu_torch.ops import probes as pr
-    t0 = time.perf_counter()
-    print("phase 2b: kernels A and K on a skewed graph", flush=True)
-    sk = {k: torch.from_numpy(v).to(dev) for k, v in
-          csr_walk.skewed_graph(rng).items()}
     deg = {side: csr_walk.degree_summary(sk[f"{side}_indptr"])
            for side in ("recv", "send")}
     plans = {side: cs.walk_plan(sk[f"{side}_indptr"])
              for side in ("recv", "send")}
     for side, plan in plans.items():
         deg[side]["pieces"] = len(plan.pieces)
-    print(json.dumps({"skewed_graph_degrees": deg}), flush=True)
+    print(json.dumps({"skewed_graph_degrees": deg, "alpha": alpha}),
+          flush=True)
     if not all(deg[side]["long_rows"] and deg[side]["pieces"]
                for side in deg):
-        fail("the skewed graph has no row that the walk cuts into pieces")
+        fail(f"the skewed graph (alpha {alpha}) has no row that the walk "
+             f"cuts into pieces")
     gen = torch.Generator(dev).manual_seed(SEED + 40)
     n = len(sk["recv_indptr"]) - 1
     table = torch.randn(n, D, generator=gen, device=dev)
@@ -314,9 +352,10 @@ def phase_skewed(rng, dev):
     fwd = (sk["w"], sk["senders"], sk["recv_indptr"])
     bwd = (sk["w_send"], sk["recv_of_send"], sk["send_indptr"])
     empty = sk["recv_indptr"][1:] == sk["recv_indptr"][:-1]
+    tag = f"alpha={alpha}"
 
     def held(name, got, f64, f32_plain):
-        err = check_close(name, got, f64.float(), TOL_SEGSUM)
+        err = check_close(f"{name} {tag}", got, f64.float(), TOL_SEGSUM)
         print(f"    the plain version's f32 sums against float64: "
               f"{float((f32_plain - f64).abs().max()):.3e}", flush=True)
         return err
@@ -330,10 +369,11 @@ def phase_skewed(rng, dev):
             f"A skewed bf16={bf16}", got.detach(),
             segsum_f64(table, *fwd, bf16),
             cs.gather_scale_segsum_plain(table, *fwd, bf16))
-        check_same(f"A skewed bf16={bf16}, a second call", got.detach(),
+        check_same(f"A skewed bf16={bf16} {tag}, a second call",
+                   got.detach(),
                    cs.gather_scale_segsum(table, *args, bf16=bf16, **planned))
         if not bool((got.detach()[empty] == 0).all()):
-            fail("A skewed: an empty row is not a zero row")
+            fail(f"A skewed {tag}: an empty row is not a zero row")
         # the backward: the same op in sender order on the cotangent (with
         # bf16 the cotangent is rounded too, as in the JAX custom VJP)
         got.backward(ct)
@@ -343,8 +383,8 @@ def phase_skewed(rng, dev):
             cs.gather_scale_segsum_plain(ct, *bwd, bf16))
         x2 = table.clone().requires_grad_(True)
         cs.gather_scale_segsum(x2, *args, bf16=bf16, **planned).backward(ct)
-        check_same(f"A skewed backward bf16={bf16}, a second call", x.grad,
-                   x2.grad)
+        check_same(f"A skewed backward bf16={bf16} {tag}, a second call",
+                   x.grad, x2.grad)
         del x, x2, got
     tp = pr.pack_table(table)
     par = (sk["senders"] & 1).float()
@@ -354,12 +394,12 @@ def phase_skewed(rng, dev):
     got = pr.packed_table_segsum(*k_args, plans["recv"])
     errs["K"] = held("K skewed", got, segsum_f64(table, *fwd, True),
                      pr.packed_table_segsum_plain(*k_args))
-    check_same("K skewed against kernel A", got,
+    check_same(f"K skewed {tag} against kernel A", got,
                cs._csr_gather_scale(table, *fwd, True, plans["recv"]))
-    check_same("K skewed, a second call (making its own plan)", got,
+    check_same(f"K skewed {tag}, a second call (making its own plan)", got,
                pr.packed_table_segsum(*k_args))
     if not bool((got[empty] == 0).all()):
-        fail("K skewed: an empty row is not a zero row")
+        fail(f"K skewed {tag}: an empty row is not a zero row")
     both = (tp, sk["w"], 1 - sk["w"], half, sk["recv_indptr"])
     rows = tp.float()[half.long()].double()
     wl = sk["w"].to(torch.bfloat16).double()[:, None]
@@ -368,14 +408,11 @@ def phase_skewed(rng, dev):
         0, cs._segment_ids(sk["recv_indptr"], len(half)),
         rows[:, :D] * wl + rows[:, D:] * wh)
     del rows
-    held("K skewed both weights", pr.packed_table_segsum(*both), f64,
-         pr.packed_table_segsum_plain(*both))
+    errs["K_both_weights"] = held(
+        "K skewed both weights", pr.packed_table_segsum(*both), f64,
+        pr.packed_table_segsum_plain(*both))
     del f64, got
-    torch.cuda.empty_cache()
-    print(json.dumps({"skewed_max_abs_err": errs,
-                      "skewed_phase_s": time.perf_counter() - t0}),
-          flush=True)
-    return sk
+    return errs
 
 
 def pack_half_split(msgs, block):
@@ -2366,6 +2403,265 @@ def phase_graph_level(dev, tu_root):
     return c_err, out
 
 
+FEWSHOT_EPOCHS = 5
+FEWSHOT_TASKS = 2
+
+
+def phase_fewshot(dev, tu_root):
+    """The fewshot pipeline at full width on phase 9's TU files: ``cli.node
+    pretrain --encoder-layers 2`` (2 epochs of ``lp``, a finite, falling
+    loss), then ``cli.fewshot vanilla`` and ``finetune`` at ``--level
+    node`` and ``--level graph`` reading that checkpoint, at the CLI's
+    widths (hidden 256, 5 shots, batch 16, a 65,536-row library, 5
+    retrieved rows), cut for time to ``--epochs 5 --test-times 2`` (the
+    CLI's defaults are 50 and 5). Each run must load the checkpoint, not
+    fall back; the train append must fill 40 rows per train graph and the
+    val append reach the capacity; the finetune loss must be finite and
+    fall in each task; every accuracy must be finite and above chance.
+    The fewshot retrieval takes the structure branch of ``retrieve`` (two
+    matmuls and ``torch.topk``, as the JAX package's ``jax.lax.top_k``), so
+    the phase must launch kernel C, and every other kernel, zero times. It
+    times the library build, the structure ``retrieve`` of one batch alone
+    with its two products apart, the finetune step and each CLI run."""
+    import copy
+
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.bench import timing
+    from ragraph_tpu_torch.cli import fewshot as fs_cli
+    from ragraph_tpu_torch.cli import node as node_cli
+    from ragraph_tpu_torch.data.batching import flat_batches, stacked_batches
+    from ragraph_tpu_torch.models.ragraph_fewshot import RAGraphFewshotState
+    from ragraph_tpu_torch.ops.shortest_path import position_aware_codes
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.rag.library import retrieve
+    print(f"phase 11: the fewshot pipeline, {NODE_GRAPHS} graphs, hidden "
+          f"{NODE_HIDDEN}, batch {NODE_BATCH}, library capacity "
+          f"{NODE_CAPACITY}", flush=True)
+    ds, (n_train, n_val, _) = node_dataset()
+    tmp = f"{tu_root}/fewshot"
+    common = ["--dataset", ds.name, "--data-root", tu_root, "--save-dir",
+              f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
+              "--hidden", str(NODE_HIDDEN), "--batch-size", str(NODE_BATCH),
+              "--device", str(dev)]
+    out = {}
+    t_phase = time.perf_counter()
+    native.reset_launches()
+
+    # -- a two-layer encoder: 2 epochs of lp
+    probe = TimedObserver()
+    path = node_cli.main(["pretrain", "--encoder-layers", "2",
+                          "--pretrain-loss", "lp", "--pretrain-epochs", "2",
+                          "--lp-samples", "100"] + common, observer=probe)
+    with open(f"{tmp}/results/pretrain_{ds.name}.json") as f:
+        losses = json.load(f)["epoch_losses"]
+    ckpt = node_cli.load_encoder_state(f"{tmp}/modelset", ds.name)
+    if len(losses) != 2 or not np.isfinite(losses).all() \
+            or not losses[-1] < losses[0] or ckpt is None \
+            or "gcn.convs.1.lin.weight" not in ckpt:
+        fail(f"cli.node pretrain --encoder-layers 2: losses {losses}, "
+             f"checkpoint {path} with {sorted(ckpt or {})}")
+    out["pretrain"] = {"epoch_losses": losses,
+                       "epoch_s": probe.out["pretrain_epoch_s"]}
+    print(f"  cli.node pretrain --encoder-layers 2: losses {losses}",
+          flush=True)
+
+    class Probe(TimedObserver, node_cli.RunObserver):
+        """Times the CLI's stages and checks the state between them."""
+
+        def __init__(self, level):
+            super().__init__()
+            self.level = level
+            self.out["finetune_losses"] = []
+
+        def after_checkpoint(self, encoder_state):
+            if encoder_state is None or not all(
+                    torch.equal(encoder_state[k], ckpt[k]) for k in ckpt):
+                fail(f"cli.fewshot --level {self.level} did not load the "
+                     f"two-layer checkpoint")
+            self.out["checkpoint_loaded"] = True
+
+        def query_batch(self, val, pad):
+            """The features, adjacency and mask of the first val batch as
+            the level's forward takes it."""
+            if self.level == "node":
+                g = next(flat_batches(val.graphs, NODE_BATCH, pad,
+                                      num_classes=3, device=dev))
+                return g.features, g.adj, g.node_mask
+            b = next(stacked_batches(val.graphs, NODE_BATCH, num_classes=3,
+                                     num_graph_classes=3, device=dev))
+            return b["features"], b["adj"], b["node_mask"]
+
+        def after_library_build_train(self, task, state, libcfg, train, val,
+                                      pad):
+            fill = int(state.library.fill)
+            want = len(train.graphs) * (1 + libcfg.num_augment_scale) \
+                * libcfg.num_inverse_sample
+            if len(train.graphs) != n_train or fill != want:
+                fail(f"fewshot library holds {fill} rows after the train "
+                     f"split of {len(train.graphs)} graphs, expected {want}")
+            self.out.setdefault("library_rows_train", []).append(fill)
+            self.out.setdefault("library_rows_per_s", []).append(
+                fill / self.out["library_build_train_s"][-1])
+            if "retrieve_ms" in self.out:
+                return
+            # the structure retrieve of one batch alone, at the run's shape
+            f, a, m = self.query_batch(val, pad)
+            with torch.no_grad():
+                emb = task._encode(state, f, a, m)
+            rows = emb.reshape(-1, emb.shape[-1])
+            pos = position_aware_codes(
+                a, m, libcfg.num_anchors, libcfg.dis_q,
+                generator=torch.Generator(dev).manual_seed(0))
+            pos = pos.reshape(rows.shape[0], -1)
+            lib = state.library
+            keys, _, _, positions = lib.live()
+            before = dict(native.LAUNCHES)
+            rag_emb, rag_labels = retrieve(lib, rows, libcfg,
+                                           search_positions=pos)
+            torch.cuda.synchronize()
+            k = libcfg.retrieve_num
+            if dict(native.LAUNCHES) != before:
+                fail(f"the fewshot retrieve launched a kernel: "
+                     f"{native.LAUNCHES}")
+            real = m.reshape(-1)
+            if tuple(rag_emb.shape) != (rows.shape[0], k, NODE_HIDDEN) \
+                    or not bool(torch.isfinite(rag_emb).all()) \
+                    or not bool((rag_labels[real].sum(-1) == 1).all()):
+                fail(f"fewshot retrieve returned {tuple(rag_emb.shape)} "
+                     f"and labels outside the store")
+            qn, kn = l2_normalize(rows), l2_normalize(keys)
+            pn, rn = l2_normalize(pos), l2_normalize(positions)
+            self.out.update({
+                "retrieve_queries": rows.shape[0],
+                "retrieve_rows": lib.capacity, "retrieve_width": rows.shape[1],
+                "position_width": pos.shape[1],
+                "retrieve_ms": cuda_ms(lambda: retrieve(
+                    lib, rows, libcfg, search_positions=pos)),
+                "retrieve_device_ms": device_ms(lambda: retrieve(
+                    lib, rows, libcfg, search_positions=pos)),
+                "semantic_product_device_ms": device_ms(lambda: qn @ kn.T),
+                "position_product_device_ms": device_ms(lambda: pn @ rn.T)})
+
+        def after_finetune_epoch(self, losses):
+            self.out["finetune_losses"].append(
+                float(torch.stack(losses).mean()))
+
+        def after_finetune(self, task, state, optimizer, batches):
+            if "finetune_step_ms" in self.out:
+                return
+            # the step's split, on a copy so that the run's weights stay
+            # the CLI's own
+            twin = RAGraphFewshotState(copy.deepcopy(state.encoder),
+                                       state.library, state.support)
+            opt = task.make_optimizer(twin)
+            loss_fn = task.loss_node if self.level == "node" \
+                else task.loss_graph
+            gen = torch.Generator(dev).manual_seed(1)
+            box = {}
+
+            def forward():
+                opt.zero_grad(set_to_none=True)
+                box["loss"] = loss_fn(twin, batches[0], gen)
+
+            fwd, bwd, step = timing.split_ms(
+                [forward, lambda: box["loss"].backward(), opt.step], 5, dev)
+            self.out["finetune_step_ms"] = {
+                "forward": fwd, "backward": bwd, "optimizer": step,
+                "step": fwd + bwd + step}
+            for name, prm in twin.encoder.gcn.convs.named_parameters():
+                if prm.grad is None \
+                        or not bool(torch.isfinite(prm.grad).all()) \
+                        or float(prm.grad.abs().max()) == 0.0:
+                    fail(f"fewshot finetune step: gradient of {name} "
+                         f"missing, non-finite or all zero")
+
+        def after_library_build_val(self, task, state, libcfg, train, val,
+                                    pad):
+            if int(state.library.fill) != NODE_CAPACITY:
+                fail(f"fewshot library holds {int(state.library.fill)} rows "
+                     f"after the val append, expected the capacity "
+                     f"{NODE_CAPACITY}")
+
+    run = ["--shots", "5", "--library-capacity", str(NODE_CAPACITY),
+           "--retrieve-num", "5", "--test-times", str(FEWSHOT_TASKS)] \
+        + common
+    for level in ("node", "graph"):
+        for mode, extra in (("vanilla", []),
+                            ("finetune", ["--epochs", str(FEWSHOT_EPOCHS)])):
+            probe = Probe(level)
+            t0 = time.perf_counter()
+            mean = fs_cli.main([mode, "--level", level] + run + extra,
+                               observer=probe)
+            torch.cuda.synchronize()
+            res = probe.out
+            res["cli_s"] = time.perf_counter() - t0
+            with open(f"{tmp}/results/fewshot_{mode}_{level}_{ds.name}"
+                      f"_shot5.json") as f:
+                written = json.load(f)
+            accs = np.array(written["accuracy"]) / 100.0
+            if sorted(written) != ["accuracy", "mean", "std"] \
+                    or written["mean"] != mean or len(accs) != FEWSHOT_TASKS \
+                    or not np.isfinite(accs).all() or not (accs > 1 / 3).all():
+                fail(f"cli.fewshot {mode} --level {level}: result file "
+                     f"{written} (chance 0.33)")
+            if not res.get("checkpoint_loaded"):
+                fail(f"cli.fewshot {mode} --level {level}: no checkpoint")
+            losses = res["finetune_losses"]
+            if mode == "finetune":
+                per_task = [losses[i:i + FEWSHOT_EPOCHS] for i in
+                            range(0, len(losses), FEWSHOT_EPOCHS)]
+                if len(per_task) != FEWSHOT_TASKS \
+                        or not np.isfinite(losses).all() \
+                        or not all(t[-1] < t[0] for t in per_task):
+                    fail(f"cli.fewshot finetune --level {level}: losses "
+                         f"{losses} are not finite and falling per task")
+            elif losses:
+                fail(f"cli.fewshot vanilla --level {level} finetuned")
+            res["accuracy"] = accs.tolist()
+            res["accuracy_mean"], res["accuracy_std"] = \
+                float(accs.mean()), float(accs.std())
+            out[f"{mode}_{level}"] = res
+            print(f"  cli.fewshot {mode} --level {level}: accuracy "
+                  f"{accs.mean():.4f} +- {accs.std():.4f} in "
+                  f"{res['cli_s']:.1f} s (checks included)", flush=True)
+    out["launches"] = dict(native.LAUNCHES)
+    if out["launches"].get("fused_cosine_topk", 0) != 0 \
+            or any(out["launches"].values()):
+        fail(f"phase 11 launched kernels {out['launches']}: the fewshot "
+             f"path takes the structure branch, which runs none")
+    try:
+        fs_cli.main(["vanilla", "--mesh", "dp=1,idx=1"] + common)
+    except SystemExit as e:
+        if "ROADMAP.md" not in str(e):
+            fail(f"cli.fewshot --mesh exited without a pointer to "
+                 f"ROADMAP.md: {e}")
+    else:
+        fail("cli.fewshot --mesh ran")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"fewshot": out}), flush=True)
+    print(json.dumps({
+        "fewshot_library_build_s": {
+            k: out[k]["library_build_train_s"] for k in out
+            if isinstance(out[k], dict) and "library_build_train_s" in out[k]},
+        "fewshot_retrieve_ms": {
+            lvl: out[f"vanilla_{lvl}"]["retrieve_ms"]
+            for lvl in ("node", "graph")},
+        "fewshot_finetune_step_ms": {
+            lvl: out[f"finetune_{lvl}"]["finetune_step_ms"]["step"]
+            for lvl in ("node", "graph")},
+        "fewshot_cli_s": {k: out[k]["cli_s"] for k in out
+                          if isinstance(out[k], dict) and "cli_s" in out[k]},
+        "fewshot_accuracy": {k: [out[k]["accuracy_mean"],
+                                 out[k]["accuracy_std"]] for k in out
+                             if isinstance(out[k], dict)
+                             and "accuracy_mean" in out[k]},
+        "fewshot_launches": out["launches"],
+        "fewshot_phase_s": out["phase_s"]}), flush=True)
+    return out
+
+
 def phase_timing(dev, graph, errs, launches, probes, skewed):
     import torch
 
@@ -3011,6 +3307,7 @@ def main() -> int:
         errs["C"] = max(errs["C"], phase_node_path(dev, tu_root))
         c_err, _ = phase_graph_level(dev, tu_root)
         errs["C"] = max(errs["C"], c_err)
+        phase_fewshot(dev, tu_root)
     kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
     phase_step_timing(dev, trained)
     if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):

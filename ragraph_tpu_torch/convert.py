@@ -190,3 +190,56 @@ def library_from_jax(keys, values, labels, positions, fill, capacity: int,
         *(torch.from_numpy(a).to(dev) for a in arrays),
         fill=torch.tensor(int(fill), dtype=torch.int32, device=dev),
         capacity=int(capacity))
+
+
+def prompt_params_from_jax(variables: dict) -> dict:
+    """The flax variables of a JAX ``nn/prompts.py`` module
+    (``DownstreamPrompt``, ``WeightedPrompt``, ``WeightedFeature`` or
+    ``DownPrompt``) as a ``state_dict`` for the port's module of the same
+    name: the tree's paths joined by dots, each leaf a ``weight`` in the
+    same orientation."""
+    params = variables.get("params", variables)
+    out = {}
+
+    def walk(prefix, sub):
+        for name, v in sub.items():
+            if hasattr(v, "items"):
+                walk(f"{prefix}{name}.", v)
+            elif name == "weight":
+                out[prefix + name] = _np32(v)
+            else:
+                raise ValueError(f"{prefix}{name}: not a prompt parameter")
+    walk("", params)
+    return out
+
+
+def fewshot_state_from_jax(state, device: str | torch.device = "cuda"):
+    """The port's ``RAGraphFewshotState`` from the JAX package's: the
+    encoder through :func:`preprompt_params_from_jax` (its width and depth
+    read off the tree), the library through :func:`library_from_jax` and
+    the support set's arrays, all on ``device``."""
+    from ragraph_tpu_torch.models.preprompt import PrePrompt
+    from ragraph_tpu_torch.models.ragraph_fewshot import (
+        FewshotSupportSet, RAGraphFewshotState)
+    dev = resolve_device(device)
+    sd = preprompt_params_from_jax(state.encoder_params)
+    layers = sum(1 for k in sd if k.endswith(".lin.weight")
+                 and k.startswith("gcn.convs."))
+    hidden, in_features = sd["gcn.convs.0.lin.weight"].shape
+    encoder = PrePrompt(in_features, hidden=hidden, num_layers=layers)
+    encoder.load_state_dict(complete_preprompt_state(sd, encoder))
+    lib = state.library
+    library = library_from_jax(*(np.asarray(a) for a in (
+        lib.keys, lib.values, lib.labels, lib.positions)),
+        int(lib.fill), lib.capacity, dev)
+    sup = state.support
+
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a)).to(dev, dtype)
+    support = FewshotSupportSet(
+        put(sup.features, torch.float32), put(sup.adj, torch.float32),
+        put(sup.labels, torch.int64),
+        None if sup.graph_ids is None else put(sup.graph_ids, torch.int64))
+    return RAGraphFewshotState(encoder=encoder.to(dev), library=library,
+                               support=support)
+

@@ -7,3 +7,7 @@ from ragraph_tpu_torch.models.ragraph_graph import (  # noqa: F401
     graph_library_config)
 from ragraph_tpu_torch.models.ragraph_node import (  # noqa: F401
     RAGraphNode, RAGraphNodeConfig, RAGraphNodeState)
+from ragraph_tpu_torch.models.ragraph_fewshot import (  # noqa: F401
+    FEWSHOT_GRAPH_WEIGHTS, FEWSHOT_NODE_WEIGHTS, FewshotSupportSet,
+    RAGraphFewshot, RAGraphFewshotConfig, RAGraphFewshotState,
+    fewshot_library_config)

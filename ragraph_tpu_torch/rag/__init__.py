@@ -8,3 +8,6 @@ from ragraph_tpu_torch.rag.library import (  # noqa: F401
 from ragraph_tpu_torch.rag.pretrain_aug import (  # noqa: F401
     aug_drop_node, aug_random_edge, aug_random_mask, aug_subgraph,
     draw_view, make_graphcl_views)
+from ragraph_tpu_torch.rag.fewshot import (  # noqa: F401
+    FewShotBase, fewshot_mean_logits, fewshot_predict_labels,
+    fewshot_predict_logits, fewshot_predict_loss)
