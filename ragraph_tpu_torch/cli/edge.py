@@ -5,19 +5,23 @@
 JAX CLI's flags plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels):
 
-- ``pretrain`` trains ``--model`` (RAGraph, GraphPro or LightGCN) on the
-  pretrain split and writes the best tables to
-  ``<save-dir>/pretrain_<model>_<dataset>.pkl`` and the best metrics to the
-  ``.json`` of the same name;
+- ``pretrain`` trains ``--model`` on the pretrain split (``GraphPro`` for
+  the dynamic models ``roland``, ``evolvegcn_h`` and ``evolvegcn_o``) and
+  writes the best tables to ``<save-dir>/pretrain_<model>_<dataset>.pkl``
+  and the best metrics to the ``.json`` of the same name;
 - ``finetune`` runs the staged finetuning from those tables (it pretrains
   first when they are missing) and writes
-  ``<save-dir>/finetune_<model>_<dataset>.json``; ``--noise``, ``--lora``,
-  ``--stage-ckpt-dir`` and ``--resume`` as in the JAX CLI;
+  ``<save-dir>/finetune_<tag>_<dataset>.json``, the tag being
+  ``<model>[-<dynamic>][-<prompt>]``: ``--dynamic`` crosses a plugin model
+  (SGL, SimGCL, MixGCF) with ROLAND or EvolveGCN, ``--prompt`` a plugin
+  model or LightGCN with a prompt vector (with ``--model GP`` it picks
+  GP's prompt mode); a dynamic run takes the dynamic staged loop
+  (``staged_dynamic``); ``--noise``, ``--lora``, ``--stage-ckpt-dir`` and
+  ``--resume`` as in the JAX CLI;
 - ``vanilla`` runs the training-free staged evaluation from the tables.
 
 Either package reads the other's ``pretrain_*.pkl``. Not ported yet, each
-exiting with a pointer to ROADMAP.md: the model zoo (``--model`` beyond the
-three, ``--dynamic``, ``--prompt``), reference ``.pt`` checkpoints and
+exiting with a pointer to ROADMAP.md: reference ``.pt`` checkpoints and
 ``--mesh``.
 
 Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
@@ -28,6 +32,7 @@ Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -41,16 +46,25 @@ from ragraph_tpu_torch.data.edgelist import (load_edge_dataset, merge_rows,
                                              parse_edge_file)
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.device import resolve_device
-from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, GraphPro,
-                                           LightGCNEdge, RAGraphEdge,
-                                           edge_config_for, staged_finetune)
+from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, EvolveGCNH,
+                                           EvolveGCNO, GraphPro,
+                                           GraphPromptEdge, LightGCNEdge,
+                                           LightGCNPlugin, MixGCFPlugin,
+                                           RAGraphEdge, Roland, SGLPlugin,
+                                           SimGCLPlugin, edge_config_for,
+                                           make_dynamic, make_prompted,
+                                           staged_dynamic, staged_finetune)
 from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
                                                 restore_checkpoint)
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
 from ragraph_tpu_torch.train.trainer import EdgeTrainer
 
 MODELS = {"RAGraph": RAGraphEdge, "GraphPro": GraphPro,
-          "LightGCN": LightGCNEdge}
+          "LightGCN": LightGCNEdge, "SGL": SGLPlugin,
+          "SimGCL": SimGCLPlugin, "MixGCF": MixGCFPlugin,
+          "GP": GraphPromptEdge, "roland": Roland,
+          "evolvegcn_h": EvolveGCNH, "evolvegcn_o": EvolveGCNO}
+DYNAMIC_MODELS = ("roland", "evolvegcn_h", "evolvegcn_o")
 
 
 def build_parser():
@@ -58,15 +72,15 @@ def build_parser():
     p.add_argument("mode", choices=["pretrain", "finetune", "vanilla"])
     p.add_argument("--data-path", default="SYNTH")
     p.add_argument("--model", default="RAGraph",
-                   choices=["RAGraph", "GraphPro", "LightGCN", "SGL",
-                            "SimGCL", "MixGCF", "GP",
-                            "roland", "evolvegcn_h", "evolvegcn_o"],
-                   help="RAGraph, GraphPro and LightGCN are ported; the "
-                        "name also picks the tables to load "
-                        "(pretrain_<model>_<dataset>)")
-    p.add_argument("--dynamic", default=None,
-                   choices=["roland", "evolvegcn_h", "evolvegcn_o"])
-    p.add_argument("--prompt", default=None, choices=["graphprompt", "gpf"])
+                   choices=list(MODELS),
+                   help="the model; the name also picks the tables to "
+                        "load (pretrain_<model>_<dataset>)")
+    p.add_argument("--dynamic", default=None, choices=list(DYNAMIC_MODELS),
+                   help="cross a plugin --model (SGL, SimGCL, MixGCF) with "
+                        "a dynamic-GNN evolution")
+    p.add_argument("--prompt", default=None, choices=["graphprompt", "gpf"],
+                   help="cross a plugin --model (or LightGCN) with a prompt "
+                        "vector; with --model GP, GP's prompt mode")
     p.add_argument("--noise", action="store_true")
     p.add_argument("--retrieve-dtype", choices=["input", "int8"],
                    default="input")
@@ -143,14 +157,36 @@ def _logger() -> logging.Logger:
 
 
 def _model_cls(args):
-    if args.model not in MODELS or args.dynamic or args.prompt:
-        raise SystemExit(
-            f"ragraph_tpu_torch.cli.edge: --model {args.model}"
-            + (f" --dynamic {args.dynamic}" if args.dynamic else "")
-            + (f" --prompt {args.prompt}" if args.prompt else "")
-            + " is not yet ported (ROADMAP.md queue 1, item 7: the edge "
-              "model zoo); RAGraph, GraphPro and LightGCN run")
-    return MODELS[args.model]
+    """``--model`` with its optional ``--dynamic`` / ``--prompt`` cross as a
+    class, or the refusal of the JAX CLI."""
+    name, dynamic, prompt = args.model, args.dynamic, args.prompt
+    cls = MODELS[name]
+    if dynamic is not None:
+        if name not in ("SGL", "SimGCL", "MixGCF"):
+            raise SystemExit(f"--dynamic requires a plugin model "
+                             f"(SGL/SimGCL/MixGCF), got {name}")
+        cls = make_dynamic(cls, dynamic)
+    if prompt is not None:
+        if name == "GP":
+            # plain GP takes the prompt mode itself
+            return functools.partial(GraphPromptEdge, prompt_mode=prompt)
+        if name not in ("SGL", "SimGCL", "MixGCF", "LightGCN"):
+            raise SystemExit(f"--prompt requires a plugin model, got {name}")
+        if name == "LightGCN":
+            # LightGCNEdge never runs the per-layer loop, so graphprompt's
+            # hook would be dead (a zero prompt gradient): the prompt
+            # crosses wrap the plugin LightGCN
+            cls = LightGCNPlugin
+        cls = make_prompted(cls, prompt)
+    return cls
+
+
+def _is_dynamic(args):
+    return args.model in DYNAMIC_MODELS or args.dynamic is not None
+
+
+def _dynamic_mode(args):
+    return args.model if args.model in DYNAMIC_MODELS else args.dynamic
 
 
 def run_pretrain(args):
@@ -158,7 +194,10 @@ def run_pretrain(args):
     validation split, keep the best tables. Returns the checkpoint path."""
     dev = resolve_device(args.device)
     log = _logger()
-    model_cls = _model_cls(args)
+    # the dynamic models are finetune-stage wrappers: their pretrain tables
+    # come from GraphPro; --dynamic and --prompt play no part here
+    model_cls = MODELS["GraphPro" if args.model in DYNAMIC_MODELS
+                       else args.model]
     train_rows, val_rows, _, _ = _load_rows(args)
     ds = load_edge_dataset(train_rows, [(u, i) for (u, i, *_) in val_rows],
                            hour_interval=args.hour_interval)
@@ -213,18 +252,29 @@ def run_finetune(args):
         tables = restore_checkpoint(default)
         log.info(f"loaded pretrain tables from {default}")
 
-    result = staged_finetune(
-        train_rows, ft_rows, stage_rows, tables,
-        cfg_factory=lambda phase: _cfg(args, phase, name),
-        seed=args.seed, device=dev, hour_interval=args.hour_interval,
-        updt_inter=args.updt_inter, num_epochs=args.epochs, logger=log.info,
-        model_cls=model_cls, val_rows=val_rows,
-        checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
+    if _is_dynamic(args):
+        result = staged_dynamic(
+            train_rows, ft_rows, stage_rows, tables,
+            cfg_factory=lambda phase: _cfg(args, phase, name),
+            seed=args.seed, model_cls=model_cls, device=dev,
+            mode=_dynamic_mode(args), hour_interval=args.hour_interval,
+            num_epochs=args.epochs, logger=log.info, val_rows=val_rows,
+            checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
+    else:
+        result = staged_finetune(
+            train_rows, ft_rows, stage_rows, tables,
+            cfg_factory=lambda phase: _cfg(args, phase, name),
+            seed=args.seed, device=dev, hour_interval=args.hour_interval,
+            updt_inter=args.updt_inter, num_epochs=args.epochs,
+            logger=log.info, model_cls=model_cls, val_rows=val_rows,
+            checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
     log.info(f"recalls: {result.recalls}")
     log.info(f"ndcgs:   {result.ndcgs}")
     log.info(f"avg recall {result.avg_recall:.5f} "
              f"avg ndcg {result.avg_ndcg:.5f}")
-    out = os.path.join(args.save_dir, f"finetune_{args.model}_{name}.json")
+    tag = args.model + "".join(f"-{x}" for x in (args.dynamic, args.prompt)
+                               if x)
+    out = os.path.join(args.save_dir, f"finetune_{tag}_{name}.json")
     with open(out, "w") as f:
         json.dump({"recalls": result.recalls, "ndcgs": result.ndcgs,
                    "avg_recall": result.avg_recall,

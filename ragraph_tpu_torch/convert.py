@@ -9,11 +9,13 @@ import torch
 from ragraph_tpu_torch.device import resolve_device
 from ragraph_tpu_torch.nn.lora import LoRAFactors
 
-# The edge-model parameters the port reads: four arrays, and the LoRA
-# factors as ``(A, B)`` pairs of arrays.
+# The edge-model parameters the port reads: arrays, the LoRA factors as
+# ``(A, B)`` pairs of arrays, and the dynamic models' GRU as a dict of four
+# arrays.
 EDGE_PARAM_KEYS = ("user_embedding", "item_embedding", "gating_weight",
-                   "gating_bias")
+                   "gating_bias", "prompt_vec")
 EDGE_LORA_KEYS = ("user_lora", "item_lora")
+GRU_PARAM_KEYS = ("w_ih", "w_hh", "b_ih", "b_hh")
 
 
 def params_from_jax(params: dict, device: str | torch.device = "cuda"
@@ -22,9 +24,12 @@ def params_from_jax(params: dict, device: str | torch.device = "cuda"
     e.g. from its pickle checkpoints or ``np.asarray`` of its jax arrays)
     into f32 tensors on ``device``, under the same keys. ``user_lora`` and
     ``item_lora`` (pairs of arrays ``(A, B)``) become
-    :class:`ragraph_tpu_torch.nn.lora.LoRAFactors`."""
+    :class:`ragraph_tpu_torch.nn.lora.LoRAFactors`; ``gru`` (the dict
+    ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` of the dynamic models) a dict of
+    tensors; ``prompt_vec`` must be ``(1, E)``. Any other key raises."""
     dev = resolve_device(device)
-    unknown = set(params) - set(EDGE_PARAM_KEYS) - set(EDGE_LORA_KEYS)
+    unknown = (set(params) - set(EDGE_PARAM_KEYS) - set(EDGE_LORA_KEYS)
+               - {"gru"})
     if unknown:
         raise ValueError(f"params {sorted(unknown)} are not edge-model "
                          f"parameters the port knows")
@@ -39,8 +44,17 @@ def params_from_jax(params: dict, device: str | torch.device = "cuda"
                 raise ValueError(f"{k} must be a pair (A, B), got "
                                  f"{len(v)} entries")
             out[k] = LoRAFactors(put(v[0]), put(v[1]))
+        elif k == "gru":
+            if set(v) != set(GRU_PARAM_KEYS):
+                raise ValueError(f"gru must hold {list(GRU_PARAM_KEYS)}, "
+                                 f"got {sorted(v)}")
+            out[k] = {n: put(v[n]) for n in GRU_PARAM_KEYS}
         else:
             out[k] = put(v)
+    if "prompt_vec" in out and (out["prompt_vec"].ndim != 2
+                                or out["prompt_vec"].shape[0] != 1):
+        raise ValueError(f"prompt_vec must be (1, E), got "
+                         f"{tuple(out['prompt_vec'].shape)}")
     return out
 
 

@@ -46,8 +46,11 @@ from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig, bpr_loss,
                                                 relative_time_encoding)
 from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
 from ragraph_tpu_torch.nn.lora import LoRAFactors, apply_lora, svd_init
-from ragraph_tpu_torch.ops.csr_segment import WalkPlan, walk_plan
+from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, gather_scale_segsum,
+                                               sorted_segment_sum_grad,
+                                               walk_plan)
 from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
+from ragraph_tpu_torch.ops.segment import scatter_sum
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
 from ragraph_tpu_torch.ops.topk import (cosine_topk, quantize_keys_i8,
@@ -182,7 +185,7 @@ class EdgeGraphArrays:
         return int(self.senders.shape[0])
 
 
-def _xavier(shape: tuple, generator: torch.Generator,
+def xavier(shape: tuple, generator: torch.Generator,
             device: torch.device) -> torch.Tensor:
     """Glorot-uniform init (fan-in ``shape[-2]``, fan-out ``shape[-1]``)."""
     bound = math.sqrt(6.0 / (shape[-2] + shape[-1]))
@@ -300,6 +303,22 @@ class TemporalLightGCN:
         return edge_drop_mask(generator, g.num_edges, keep_rate,
                               g.device), None
 
+    def _prop_layer(self, g, h, weights, w_send, impl):
+        """One propagation layer under the chosen backend, the building
+        block of the per-layer loops of the plugin and dynamic models:
+        ``"fused"`` is kernel A with the graph's walk plans, ``"sorted"``
+        gathers and scales the rows and sums them with kernel B,
+        ``"scatter"`` is ``index_add_``."""
+        if impl == "fused":
+            return gather_scale_segsum(
+                h, weights, w_send, g.senders, g.recv_indptr,
+                g.recv_of_send, g.send_indptr, bf16=self._bf16(),
+                recv_plan=g.recv_plan, send_plan=g.send_plan)
+        msgs = h[g.senders.long()] * weights[:, None]
+        if impl == "sorted":
+            return sorted_segment_sum_grad(msgs, g.recv_indptr, g.receivers)
+        return scatter_sum(msgs, g.receivers, g.num_nodes)
+
     def _propagate_layers(self, g, all_emb, weights, w_send, impl):
         return lightgcn_propagate(all_emb, g.senders, g.receivers, weights,
                                   g.num_nodes, self.cfg.num_layers,
@@ -321,17 +340,17 @@ class TemporalLightGCN:
         dev = g.device
         params: dict[str, Any] = {}
         if self.phase in ("pretrain", "for_tune") or pretrained_tables is None:
-            params["user_embedding"] = _xavier((g.num_users, cfg.emb_size),
+            params["user_embedding"] = xavier((g.num_users, cfg.emb_size),
                                                generator, dev)
-            params["item_embedding"] = _xavier((g.num_items, cfg.emb_size),
+            params["item_embedding"] = xavier((g.num_items, cfg.emb_size),
                                                generator, dev)
         else:
             params["user_embedding"], params["item_embedding"] = \
                 pretrained_tables
         if self.phase == "finetune":
-            params["gating_weight"] = _xavier((cfg.emb_size, cfg.emb_size),
+            params["gating_weight"] = xavier((cfg.emb_size, cfg.emb_size),
                                               generator, dev)
-            params["gating_bias"] = _xavier((1, cfg.emb_size), generator, dev)
+            params["gating_bias"] = xavier((1, cfg.emb_size), generator, dev)
             if self._lora():
                 params["user_lora"] = svd_init(params["user_embedding"],
                                                cfg.lora_rank,

@@ -16,6 +16,12 @@ For each temporal stage ``s`` over ``test_1..test_N``:
    best-recall early stopping;
 5. the stages' recall and ndcg are collected and averaged.
 
+:func:`staged_dynamic` is the loop of the dynamic baselines (ROLAND,
+EvolveGCN-H/-O and their plugin crosses): per stage the model is rebuilt on
+the stage graph from the previous stage's tables and GRU, ROLAND against
+its meta model's layers and EvolveGCN-H against the previous stage's
+embeddings.
+
 Every draw of a stage comes from generators seeded by ``(seed, stage,
 purpose)``, never from what earlier stages consumed, so a run resumed from
 a stage checkpoint repeats the uninterrupted run exactly.
@@ -33,6 +39,7 @@ import torch
 
 from ragraph_tpu_torch.data.edgelist import load_edge_dataset, merge_rows
 from ragraph_tpu_torch.device import resolve_device
+from ragraph_tpu_torch.models.edge.dynamic import ema_merge
 from ragraph_tpu_torch.models.edge.ragraph_edge import (EdgeGraphArrays,
                                                         RAGraphEdge)
 from ragraph_tpu_torch.ops.similarity import l2_normalize
@@ -148,10 +155,144 @@ def stage_generator(seed: int, stage: int, purpose: int,
     return torch.Generator(device).manual_seed(int(mixed) >> 1)
 
 
-def staged_dynamic(*args, **kwargs):
-    raise NotImplementedError(
-        "staged_dynamic (ROLAND / EvolveGCN) is not ported yet: it waits "
-        "for the edge model zoo (ROADMAP.md queue 1, item 7)")
+def _bucket(n_rows: int) -> int:
+    """Bidirectional edges of ``n_rows`` interactions, rounded up so that
+    every stage's graph pads to one edge count."""
+    return -((-2 * n_rows) // 4096) * 4096
+
+
+def _tree_to(tree, dev: torch.device):
+    """Tensors (or numpy arrays) of a nested dict as f32 tensors on
+    ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(_np(tree), dtype=np.float32)).to(dev)
+
+
+def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
+                   pretrain_tables: dict, cfg_factory: Callable, seed: int,
+                   model_cls, *, device: str | torch.device = "cuda",
+                   mode: str = "roland", hour_interval: float = 1.0,
+                   num_epochs: int | None = None, meta_weight: float = 0.9,
+                   logger: Callable = print, mesh=None,
+                   val_rows: list | None = None,
+                   checkpoint_dir: str | None = None,
+                   resume: bool = False,
+                   stop_after_stage: int | None = None) -> StageResult:
+    """The staged loop of the dynamic baselines (ROLAND, EvolveGCN-H/-O
+    and the plugin crosses of :func:`make_dynamic`).
+
+    Each stage builds ``model_cls`` on the stage's finetune graph, padded
+    to one edge count across stages, from the previous stage's tables; the
+    previous stage's params (``meta_params``) give every other entry the
+    new params share, the GRU's among them. ``mode="roland"`` sets the meta
+    layers from the stage's starting params (``forward_lgn``, or for a
+    cross its ``propagated_plain``), detached, and after the stage
+    EMA-merges ``meta_params`` with weight ``meta_weight`` on the old;
+    ``"evolvegcn_h"`` evolves against the previous stage's embeddings (the
+    pretrain tables before the first stage). Arguments otherwise as
+    :func:`staged_finetune`; with ``checkpoint_dir`` the carried state
+    (tables, ``meta_params``, ``last_emb``, metrics) is written after every
+    stage, and a resumed run equals an uninterrupted one bit for bit on the
+    CPU.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device staged training is not ported yet (ROADMAP.md "
+            "queue 1, item 10)")
+    dev = resolve_device(device)
+    base_ds = load_edge_dataset(
+        pretrain_rows, val_rows if val_rows is not None else stage_rows[0],
+        hour_interval=hour_interval)
+    num_users, num_items = base_ds.num_users, base_ds.num_items
+    _validate_tables(pretrain_tables, num_users, num_items)
+
+    all_rows = [pretrain_rows, finetune_rows, *stage_rows]
+    _validate_stage_ids(all_rows, num_users, num_items)
+    recalls, ndcgs = [], []
+    tables = dict(pretrain_tables)
+    meta_params = None
+    last_emb = None
+    start_stage = 1
+    if checkpoint_dir is not None and resume:
+        state = _load_stage_state(checkpoint_dir)
+        if state is not None:
+            tables = dict(state["tables"])
+            meta_params = _tree_to(state["meta_params"], dev)
+            last_emb = (_tree_to(state["last_emb"], dev)
+                        if state["last_emb"] is not None else None)
+            recalls, ndcgs = list(state["recalls"]), list(state["ndcgs"])
+            start_stage = int(state["stage"]) + 1
+            logger(f"resuming dynamic staged loop after completed stage "
+                   f"{state['stage']} ({checkpoint_dir})")
+    ft_bucket = _bucket(max(len(r) for r in all_rows[1:-1]))
+
+    for stage in range(start_stage, len(stage_rows) + 1):
+        def gen(purpose):
+            return stage_generator(seed, stage, purpose, dev)
+
+        ft_dataset = load_edge_dataset(
+            all_rows[stage], stage_rows[stage - 1],
+            hour_interval=hour_interval, num_users=num_users,
+            num_items=num_items, phase="finetune",
+            user_hist=all_rows[:stage], pad_edges_to=ft_bucket)
+        model = model_cls(cfg_factory("finetune"),
+                          EdgeGraphArrays.from_dataset(ft_dataset, dev),
+                          phase="finetune")
+        params = model.init_params(gen(1), pretrained_tables=(
+            _tree_to(tables["user_embedding"], dev),
+            _tree_to(tables["item_embedding"], dev)))
+        if meta_params is not None:
+            # the GRU and the (EMA-merged) tables carry across stages
+            params = {**params,
+                      **{k: meta_params[k] for k in meta_params
+                         if k in params and k != "gru"},
+                      "gru": meta_params["gru"]}
+
+        if mode == "roland":
+            with torch.no_grad():
+                if hasattr(model, "forward_lgn"):
+                    meta_layers = model.forward_lgn(params,
+                                                    return_layers=True)
+                else:       # a cross: its layers with the fusion off
+                    meta_layers = model.propagated_plain(params)
+            model.set_meta_layers(meta_layers)
+        elif mode == "evolvegcn_h":
+            if last_emb is None:
+                last_emb = torch.cat(
+                    [_tree_to(tables["user_embedding"], dev),
+                     _tree_to(tables["item_embedding"], dev)], dim=0)
+            model.set_last_emb(last_emb)
+
+        logger(f"--- dynamic stage {stage} ({mode})")
+        trainer = EdgeTrainer(model, ft_dataset, logger=logger)
+        result = trainer.train(params, gen(2), num_epochs=num_epochs,
+                               rng=np.random.default_rng(stage))
+        recalls.append(float(result.best_perform["recall"][0]))
+        ndcgs.append(float(result.best_perform["ndcg"][0]))
+
+        best = result.best_params
+        tables = {k: _np(best[k]) for k in ("user_embedding",
+                                            "item_embedding")}
+        if mode == "roland" and meta_params is not None:
+            meta_params = ema_merge(best, meta_params,
+                                    meta_weight=meta_weight)
+        else:
+            meta_params = best
+        u_emb, i_emb = model.generate(best)
+        last_emb = torch.cat([u_emb, i_emb], dim=0)
+        logger(f"stage {stage}: recall={recalls[-1]:.4f} "
+               f"ndcg={ndcgs[-1]:.4f}")
+        if checkpoint_dir is not None:
+            _save_stage_state(checkpoint_dir, {
+                "stage": stage, "tables": tables,
+                "meta_params": meta_params, "last_emb": last_emb,
+                "recalls": recalls, "ndcgs": ndcgs})
+        if stop_after_stage is not None and stage >= stop_after_stage:
+            logger(f"stopping after stage {stage} (stop_after_stage)")
+            break
+
+    return StageResult(recalls=recalls, ndcgs=ndcgs)
 
 
 def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
@@ -208,17 +349,10 @@ def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
             logger(f"resuming staged loop after completed stage "
                    f"{state['stage']} ({checkpoint_dir})")
 
-    def _bucket(n_rows: int) -> int:
-        # bidirectional edges, rounded up so every stage hits one bucket
-        return -((-2 * n_rows) // 4096) * 4096
-
     # every stage's graphs are padded to the largest stage's bucket, so the
     # edge arrays have one shape across the loop
     prompt_bucket = _bucket(len(merge_rows(all_rows)))
     ft_bucket = _bucket(max(len(r) for r in all_rows[1:-1]) or 1)
-
-    def to_dev(t):
-        return torch.from_numpy(np.array(_np(t), dtype=np.float32)).to(dev)
 
     for stage in range(start_stage, len(stage_rows) + 1):
         def gen(purpose):
@@ -244,8 +378,8 @@ def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
         # init_params supplies whatever else the class needs to generate;
         # the tables come from the merge
         pre_params = pre_model.init_params(gen(5))
-        pre_params["user_embedding"] = to_dev(merged["user_embedding"])
-        pre_params["item_embedding"] = to_dev(merged["item_embedding"])
+        pre_params["user_embedding"] = _tree_to(merged["user_embedding"], dev)
+        pre_params["item_embedding"] = _tree_to(merged["item_embedding"], dev)
         # two generate calls with independent gate draws: the finetune
         # model's tables and the library base must not share one draw
         pre_u, pre_i = pre_model.generate(pre_params, generator=gen(1))

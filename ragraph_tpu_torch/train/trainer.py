@@ -35,18 +35,28 @@ class TrainResult:
 
 
 def map_params(fn: Callable, params: dict) -> dict:
-    """Apply ``fn`` to every tensor of a params dict (LoRA factor pairs are
-    tuples of tensors and stay tuples)."""
-    return {k: tuple(fn(t) for t in v) if isinstance(v, (tuple, list))
-            else fn(v) for k, v in params.items()}
+    """Apply ``fn`` to every tensor of a params dict. LoRA factor pairs are
+    tuples of tensors and stay tuples; a nested dict of tensors (the GRU of
+    the dynamic models, ``gru``) stays a dict."""
+    def one(v):
+        if isinstance(v, dict):
+            return {k: fn(t) for k, t in v.items()}
+        if isinstance(v, (tuple, list)):
+            return tuple(fn(t) for t in v)
+        return fn(v)
+    return {k: one(v) for k, v in params.items()}
 
 
 def param_leaves(params: dict) -> list:
-    """``(name, tensor)`` for every tensor of a params dict, in key order."""
+    """``(name, tensor)`` for every tensor of a params dict, in key order:
+    ``user_lora.0`` for a factor pair's entries, ``gru.w_ih`` for a nested
+    dict's."""
     out = []
     for k in sorted(params):
         v = params[k]
-        if isinstance(v, (tuple, list)):
+        if isinstance(v, dict):
+            out += [(f"{k}.{n}", v[n]) for n in sorted(v)]
+        elif isinstance(v, (tuple, list)):
             out += [(f"{k}.{i}", t) for i, t in enumerate(v)]
         else:
             out.append((k, v))

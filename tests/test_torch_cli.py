@@ -46,18 +46,19 @@ def test_vanilla_cli_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("mode", ["pretrain", "finetune"])
 def test_unported_cli_modes_exit_nonzero(mode, tmp_path):
-    """Both modes run; what still exits non-zero
-    with a pointer to ROADMAP.md is the model zoo and ``--mesh``."""
+    """Both modes run, with the model zoo's ``--model`` values too; what
+    still exits non-zero with a pointer to ROADMAP.md is ``--mesh``."""
     args = [mode, "--save-dir", str(tmp_path), "--device", "cpu",
             "--epochs", "1", "--batch-size", "128", "--emb-size", "8"]
     t_edge_cli.main(args)
     assert (tmp_path / f"{mode}_RAGraph_SYNTH.json").exists()
-    for extra in (["--model", "SGL"], ["--mesh", "dp=1,idx=1"]):
-        with pytest.raises(SystemExit) as exc:
-            t_edge_cli.main(args + extra)
-        assert exc.value.code not in (0, None)
-        assert "not yet ported" in str(exc.value.code)
-        assert "ROADMAP" in str(exc.value.code)
+    t_edge_cli.main(args + ["--model", "SGL"])
+    assert (tmp_path / f"{mode}_SGL_SYNTH.json").exists()
+    with pytest.raises(SystemExit) as exc:
+        t_edge_cli.main(args + ["--mesh", "dp=1,idx=1"])
+    assert exc.value.code not in (0, None)
+    assert "not yet ported" in str(exc.value.code)
+    assert "ROADMAP" in str(exc.value.code)
 
 
 def test_checkpoint_interop(tmp_path):
@@ -84,6 +85,9 @@ def test_checkpoint_interop(tmp_path):
     with pytest.raises(ValueError, match="pair"):
         params_from_jax({"user_lora": np.zeros(3)}, "cpu")
     with pytest.raises(ValueError, match="not edge-model"):
+        params_from_jax({"meta_layers": np.zeros(2)}, "cpu")
+    # the prompt vector, ported since with the model zoo, must be (1, E)
+    with pytest.raises(ValueError, match=r"\(1, E\)"):
         params_from_jax({"prompt_vec": np.zeros(2)}, "cpu")
 
 

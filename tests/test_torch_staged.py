@@ -23,7 +23,8 @@ from ragraph_tpu_torch.cli import edge as t_edge_cli
 from ragraph_tpu_torch.data.edgelist import load_edge_dataset
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, EdgeModelConfig,
-                                           GraphPro, RAGraphEdge, staged)
+                                           GraphPro, RAGraphEdge, Roland,
+                                           staged)
 from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
                                                 restore_checkpoint)
 
@@ -151,7 +152,9 @@ def test_staged_guards(setup):
     with pytest.raises(ValueError, match="beyond the base id range"):
         _run((train, late, tables))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        staged.staged_dynamic(train, stages[0], stages, tables)
+        staged.staged_dynamic(train, stages[0], stages, tables,
+                              lambda phase: _cfg(), 2, Roland,
+                              device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _run(setup, mesh=object())
     assert RAGraphEdge.use_rag and not GraphPro.use_rag
@@ -229,8 +232,10 @@ def test_cli_finetune_pretrains_when_no_checkpoint_and_resumes(tmp_path):
     with pytest.raises(SystemExit, match="ROADMAP"):
         t_edge_cli.main(["finetune", "--device", "cpu", "--pre-model-path",
                          "weights.pt"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        t_edge_cli.main(["pretrain", "--device", "cpu", "--model", "SGL"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
+    # the zoo's refusals, before any work, with the JAX CLI's messages
+    with pytest.raises(SystemExit, match="--dynamic requires a plugin"):
         t_edge_cli.main(["finetune", "--device", "cpu", "--model",
-                         "roland"])
+                         "GraphPro", "--dynamic", "roland"])
+    with pytest.raises(SystemExit, match="--prompt requires a plugin"):
+        t_edge_cli.main(["finetune", "--device", "cpu", "--model",
+                         "roland", "--prompt", "gpf"])
