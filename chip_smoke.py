@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels and drive its serving, ops, training,
-probe, node and model-zoo paths on one GPU.
+probe, node, model-zoo and host-data paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -101,7 +101,23 @@ Phases (any failure exits non-zero):
    ``staged_dynamic`` stage each of ROLAND and SGL x EvolveGCN-H, launches
    as counted and the metrics finite; (d) ``cli.edge pretrain`` and
    ``finetune`` of five zoo configurations on the synthetic stream, each
-   writing the JAX CLI's files.
+   writing the JAX CLI's files;
+13. the single-device utilities, after phase 11: (a) the host data path at
+   the main path's size: the train rows written as a reference edge file
+   and parsed in C++ and in numpy (equal arrays), an epoch's negatives
+   (512 batches of 2,048) drawn by each (none in its user's history, the
+   C++ draws repeated bit for bit from one seed), ``build_csr_native``
+   against the dataset's CSR, and a pretrain epoch with the trainer's
+   defaults (C++ sampler, prefetch; kernel A 6 launches a step) in turns
+   with one that draws numpy negatives in line; (b) the IVF index at
+   ``benchmarks/bench_10m_index.py``'s shape (10,000,000 bf16 keys of 128,
+   8,192 clusters of capacity 2,560, 5 iterations; 256 queries, nprobe
+   16, k = 10): build seconds, dropped rows, search ms, peak memory, and
+   recall@10 against the exact tier (kernels D-G), beside kernel C's brute
+   force (its recall and its scores against the exact tier's); (c)
+   ``cli.edge finetune --pre-model-path x.pt`` from a reference-style
+   ``.pt`` with its run log, the ``phase()`` totals, and ``op_profile`` of
+   one pretrain step listing kernel A's launches.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -111,6 +127,7 @@ nothing of JAX and needs the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -1826,6 +1843,16 @@ def phase_small_agreement(dev):
         check_close(f"small graph {name} embeddings", a, b, TOL_E2E)
 
 
+def cli_files(save_dir):
+    """``(result files, run logs)`` a CLI left in ``save_dir``, sorted: the
+    run logs are the ``train_log_<stamp>.txt`` files, one for each second
+    in which a mode started."""
+    files = sorted(os.listdir(save_dir))
+    logs = [f for f in files if f.startswith("train_log_")
+            and f.endswith(".txt")]
+    return [f for f in files if f not in logs], logs
+
+
 def phase_cli(dev):
     """The port's CLI on the synthetic stream, on the card: ``vanilla`` from
     given tables, then ``pretrain``, ``finetune`` and ``vanilla`` in order
@@ -1853,11 +1880,12 @@ def phase_cli(dev):
         cli.main(["pretrain"] + args)
         staged = cli.main(["finetune"] + args)
         recalls, ndcgs = cli.main(["vanilla"] + args)
-        files = sorted(os.listdir(tmp))
+        files, logs = cli_files(tmp)
     want = ["finetune_RAGraph_SYNTH.json", "pretrain_RAGraph_SYNTH.json",
             "pretrain_RAGraph_SYNTH.pkl"]
-    if files != want:
-        fail(f"CLI wrote {files}, expected {want}")
+    if files != want or not logs:
+        fail(f"CLI wrote {files} and run logs {logs}, expected {want} and "
+             f"train_log_*.txt")
     if len(staged.recalls) != 4 or len(recalls) != 4 or not np.isfinite(
             staged.recalls + staged.ndcgs + recalls + ndcgs).all():
         fail(f"CLI: finetune {staged.recalls}, vanilla {recalls}")
@@ -3557,13 +3585,14 @@ def zoo_cli(dev):
                     str(ZOO_CLI_EPOCHS), "--model", model]
             cli.main(["pretrain"] + args)
             res = cli.main(["finetune"] + args + extra)
-            files = sorted(os.listdir(tmp))
+            files, logs = cli_files(tmp)
         tag = "-".join([model] + extra[1::2])
         want = sorted([f"finetune_{tag}_SYNTH.json",
                        f"pretrain_{model}_SYNTH.json",
                        f"pretrain_{model}_SYNTH.pkl"])
-        if files != want:
-            fail(f"CLI {tag} wrote {files}, expected {want}")
+        if files != want or not logs:
+            fail(f"CLI {tag} wrote {files} and run logs {logs}, expected "
+                 f"{want} and train_log_*.txt")
         if len(res.recalls) != 4 or not np.isfinite(
                 res.recalls + res.ndcgs).all():
             fail(f"CLI {tag}: recalls {res.recalls} ndcgs {res.ndcgs}")
@@ -3581,6 +3610,296 @@ def phase_step_timing(dev, trained):
     from ragraph_tpu_torch.bench.main_path import step_timings
     gen = torch.Generator(dev).manual_seed(SEED + 16)
     print(json.dumps(step_timings(*trained, gen, dev)), flush=True)
+
+
+# Phase 13b: the shape of benchmarks/bench_10m_index.py
+IVF_R = 10_000_000
+IVF_E = 128
+IVF_GEN_CLUSTERS = 1024     # the keys' centres (x 2.0, plus unit noise)
+IVF_P = 8192
+IVF_CAP = 2560
+IVF_ITERS = 5
+IVF_NPROBE = 16
+IVF_Q = 256
+IVF_K = 10
+IVF_GEN_ROWS = 1 << 20      # keys drawn and normalised this many at a time
+IVF_RECALL_MIN = 0.6        # IVF against the exact answer
+APPROX_RECALL_MIN = 0.99    # kernel C against the exact tier (D-G)
+
+
+def write_edge_file(path, users, items, times):
+    """The rows as a reference edge file: ``user \\t items \\t times``, one
+    line a user, in user order; returns the rows in the file's order."""
+    order = np.argsort(users, kind="stable")
+    u, it, t = users[order], items[order], times[order]
+    cut = np.flatnonzero(np.diff(u)) + 1
+    with open(path, "w") as f:
+        for lo, hi in zip(np.r_[0, cut], np.r_[cut, len(u)]):
+            f.write(f"{u[lo]}\t{' '.join(map(str, it[lo:hi].tolist()))}\t"
+                    f"{' '.join(map(str, t[lo:hi].tolist()))}\n")
+    return u, it, t
+
+
+def phase_host_data(dev, ds, graph):
+    """13a: the C++ parser, sampler and CSR assembly against the numpy paths
+    at the main path's size, then a pretrain epoch with the trainer's
+    defaults (C++ sampler, prefetch) beside one with the numpy sampler in
+    line. Returns ``(kernel A's launches, the trainer, its best params)``."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.data.edgelist import parse_edge_file
+    from ragraph_tpu_torch.models.edge import EdgeModelConfig, RAGraphEdge
+    from ragraph_tpu_torch.train import profiling
+    from ragraph_tpu_torch.train import trainer as trainer_mod
+    from ragraph_tpu_torch.train.trainer import EdgeTrainer
+    from ragraph_tpu_torch.utils import native as host
+    cfg = EdgeModelConfig(emb_size=D, num_layers=3)
+    steps = ds.num_edges // cfg.batch_size
+    print(f"phase 13a: host data path at {ds.num_edges} interactions, "
+          f"U = I = {ds.num_users}; {steps} batches of {cfg.batch_size}",
+          flush=True)
+    out = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        with profiling.phase(name):
+            r = fn()
+        out[f"{name}_s"] = time.perf_counter() - t0
+        return r
+
+    timed("cpp_build", host.get_lib)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "train.txt")
+        want = timed("write_edge_file", lambda: write_edge_file(
+            path, ds.edgelist[:, 0], ds.edgelist[:, 1], ds.edge_time))
+        got = timed("parse_cpp", lambda: host.parse_edge_file_native(path))
+        rows = timed("parse_numpy", lambda: parse_edge_file(
+            path, use_native=False))
+    py = np.asarray(rows, dtype=np.int64).T
+    for name, g, p, w in zip(("users", "items", "times"), got, py, want):
+        if not (np.array_equal(g, p) and np.array_equal(g, w)):
+            fail(f"13a: the C++ parser's {name} differ from the numpy "
+                 f"parser's or the file's")
+    del rows, py
+
+    perm = np.random.default_rng(SEED + 20).permutation(ds.num_edges)
+    batches = [ds.edgelist[perm[s:s + cfg.batch_size], 0].astype(np.int32)
+               for s in range(0, steps * cfg.batch_size, cfg.batch_size)]
+
+    def epoch_negs(native_path, seed):
+        rng = np.random.default_rng(seed)
+        return [ds.sample_negatives(b, rng, use_native=native_path)
+                for b in batches]
+
+    cpp = timed("negatives_cpp", lambda: epoch_negs(True, SEED + 21))
+    nump = timed("negatives_numpy", lambda: epoch_negs(False, SEED + 21))
+    again = epoch_negs(True, SEED + 21)
+    if not all(np.array_equal(a, b) for a, b in zip(cpp, again)):
+        fail("13a: the C++ sampler did not repeat from the same seed")
+    for tag, negs in (("C++", cpp), ("numpy", nump)):
+        keys = np.concatenate([b.astype(np.int64)[:, None] * ds.num_items + n
+                               for b, n in zip(batches, negs)]).ravel()
+        pos = np.minimum(np.searchsorted(ds._hist_keys, keys),
+                         len(ds._hist_keys) - 1)
+        if (ds._hist_keys[pos] == keys).any() or keys.size != steps * (
+                cfg.batch_size):
+            fail(f"13a: a {tag} negative is in its user's train history")
+    del cpp, nump, again
+
+    u = ds.edgelist[:, 0]
+    it = ds.edgelist[:, 1] + ds.num_users
+    indptr, indices = timed("csr_cpp", lambda: host.build_csr_native(
+        np.concatenate([it, u]), np.concatenate([u, it]), ds.num_nodes))
+    if not (np.array_equal(indptr, ds.recv_indptr)
+            and np.array_equal(indices, ds.senders)):
+        fail("13a: build_csr_native differs from the dataset's CSR")
+
+    model = RAGraphEdge(cfg, graph, phase="pretrain")
+    params = model.init_params(torch.Generator(dev).manual_seed(SEED + 22))
+    trainer = EdgeTrainer(model, ds, logger=lambda *_: None)
+
+    def epoch(tag, run):
+        native.reset_launches()
+        res = timed(f"{tag}_{run}", lambda: trainer.train(
+            params, torch.Generator(dev).manual_seed(SEED + 23),
+            num_epochs=1, rng=np.random.default_rng(SEED + 24)))
+        out[f"{tag}_{run}_train_s"] = res.history[0]["train_time"]
+        out[f"{tag}_{run}_step_ms"] = (res.history[0]["train_time"] * 1e3
+                                       / steps)
+        if not math.isfinite(res.history[0]["loss"]):
+            fail(f"13a: {tag} epoch loss {res.history[0]['loss']}")
+        return res, dict(native.LAUNCHES)
+
+    @contextlib.contextmanager
+    def numpy_inline():
+        """The trainer as it ran before: numpy negatives drawn in line with
+        the steps."""
+        saved = trainer_mod.prefetch
+        trainer_mod.prefetch = lambda it, depth: contextlib.nullcontext(it)
+        ds.sample_negatives = functools.partial(type(ds).sample_negatives,
+                                                ds, use_native=False)
+        try:
+            yield
+        finally:
+            trainer_mod.prefetch = saved
+            del ds.sample_negatives
+
+    # in turns: the old way, the defaults twice, the old way
+    with numpy_inline():
+        epoch("epoch_numpy_inline", 1)
+    result, launches = epoch("epoch_defaults", 1)
+    epoch("epoch_defaults", 2)
+    with numpy_inline():
+        epoch("epoch_numpy_inline", 2)
+    a = launches.get("csr_gather_scale_segsum", 0)
+    if a != steps * 2 * cfg.num_layers + cfg.num_layers:
+        fail(f"13a: kernel A launched {a} times in the epoch, expected "
+             f"{steps} x {2 * cfg.num_layers} + {cfg.num_layers}")
+    profiling.assert_all_finite(result.best_params, "13a's trained params")
+    out.update(a_launches_per_step=(a - cfg.num_layers) / steps,
+               epoch_loss=result.history[0]["loss"],
+               parse_rows=int(len(got[0])))
+    print(json.dumps({"host_data": out}), flush=True)
+    return a, trainer, result.best_params
+
+
+def phase_ivf(dev):
+    """13b: the IVF index at benchmarks/bench_10m_index.py's shape, beside
+    the exact tier (D-G, the answer) and kernel C's brute force. Returns
+    the kernels' launches in the two checked calls."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    from ragraph_tpu_torch.ops.topk import cosine_topk
+    from ragraph_tpu_torch.rag.ivf import build_ivf, ivf_search
+    from ragraph_tpu_torch.train import profiling
+    print(f"phase 13b: IVF at R = {IVF_R}, E = {IVF_E} bf16, P = {IVF_P}, "
+          f"cap = {IVF_CAP}, iters = {IVF_ITERS}; search nprobe = "
+          f"{IVF_NPROBE}, Q = {IVF_Q}, k = {IVF_K}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 30)
+    t0 = time.perf_counter()
+    centers = torch.randn((IVF_GEN_CLUSTERS, IVF_E), generator=gen,
+                          device=dev) * 2.0
+    keys_n = torch.empty((IVF_R, IVF_E), dtype=torch.bfloat16, device=dev)
+    for lo in range(0, IVF_R, IVF_GEN_ROWS):
+        n = min(IVF_GEN_ROWS, IVF_R - lo)
+        pick = torch.randint(0, IVF_GEN_CLUSTERS, (n,), generator=gen,
+                             device=dev)
+        rows = (centers[pick] + torch.randn((n, IVF_E), generator=gen,
+                                            device=dev)).to(torch.bfloat16)
+        keys_n[lo:lo + n] = l2_normalize(rows.float()).to(torch.bfloat16)
+    queries = torch.randn((IVF_Q, IVF_E), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    out = {"keys_s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with profiling.phase("ivf_build"):
+        index = build_ivf(keys_n, torch.Generator(dev).manual_seed(SEED + 31),
+                          num_clusters=IVF_P, capacity=IVF_CAP,
+                          iters=IVF_ITERS, normalized=True)
+        torch.cuda.synchronize()
+    out["ivf_build_s"] = time.perf_counter() - t0
+    dropped, valid = int(index.dropped), int(index.valid.sum())
+    out.update(dropped=dropped, dropped_share=dropped / IVF_R,
+               indexed=valid)
+    if valid + dropped != IVF_R:
+        fail(f"13b: {valid} indexed + {dropped} dropped != {IVF_R}")
+
+    with profiling.phase("ivf_search"):
+        s_ivf, ivf_ids = ivf_search(index, queries, IVF_K, nprobe=IVF_NPROBE)
+        out["ivf_search_ms"] = cuda_ms(lambda: ivf_search(
+            index, queries, IVF_K, nprobe=IVF_NPROBE), reps=10, warmup=2)
+    del index
+    torch.cuda.empty_cache()
+
+    native.reset_launches()
+    s_e, exact_ids = cosine_topk(queries, keys_n, IVF_K, method="bucket",
+                                 keys_normalized=True)
+    s_c, c_ids = cosine_topk(queries, keys_n, IVF_K, method="approx",
+                             keys_normalized=True)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    want = ("bucket_max", "column_topk", "bucket_rescore", "row_topk",
+            "fused_cosine_topk")
+    if any(launches.get(k, 0) < 1 for k in want):
+        fail(f"13b: launches {launches}, expected each of {want}")
+    out["exact_ms"] = cuda_ms(lambda: cosine_topk(
+        queries, keys_n, IVF_K, method="bucket", keys_normalized=True),
+        reps=10, warmup=1)
+    out["approx_ms"] = cuda_ms(lambda: cosine_topk(
+        queries, keys_n, IVF_K, method="approx", keys_normalized=True),
+        reps=10, warmup=1)
+
+    def recall(ids):
+        hit = (ids[:, :, None].long() == exact_ids[:, None, :].long())
+        return float(hit.any(-1).float().mean())
+
+    out["ivf_recall@10"] = recall(ivf_ids)
+    out["approx_recall@10"] = recall(c_ids)
+    out["approx_max_abs_err"] = float((s_c - s_e).abs().max())
+    out["ivf_scores_finite"] = bool(torch.isfinite(s_ivf).all())
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["launches"] = launches
+    print(json.dumps({"ivf_10m": out}), flush=True)
+    if out["ivf_recall@10"] < IVF_RECALL_MIN or not out["ivf_scores_finite"]:
+        fail(f"13b: IVF recall@10 {out['ivf_recall@10']} below "
+             f"{IVF_RECALL_MIN} or non-finite scores")
+    if out["approx_recall@10"] < APPROX_RECALL_MIN \
+            or out["approx_max_abs_err"] > TOL_SCORE:
+        fail(f"13b: kernel C's recall@10 {out['approx_recall@10']} against "
+             f"the exact tier is below {APPROX_RECALL_MIN}, or its scores "
+             f"differ by {out['approx_max_abs_err']}")
+    del keys_n
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_utilities(dev, trainer, params):
+    """13c: ``cli.edge finetune`` from a reference-style ``.pt`` on the card,
+    its run log, the ``phase()`` totals, and ``op_profile`` of one pretrain
+    step listing kernel A's launch."""
+    import glob
+
+    import torch
+
+    from ragraph_tpu_torch.bench.main_path import xavier_tables
+    from ragraph_tpu_torch.cli import edge as edge_cli
+    from ragraph_tpu_torch.train import profiling
+    print("phase 13c: cli.edge finetune --pre-model-path x.pt, run log, "
+          "phase totals, op_profile", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        tables = xavier_tables(np.random.default_rng(SEED + 40), 64, 128, D)
+        pt = os.path.join(d, "x.pt")
+        torch.save({"state_dict": {f"{k}.weight": torch.from_numpy(v)
+                                   for k, v in tables.items()}}, pt)
+        with profiling.phase("cli_finetune_pt"):
+            res = edge_cli.main(["finetune", "--data-path", "SYNTH",
+                                 "--batch-size", "128", "--epochs", "3",
+                                 "--pre-model-path", pt, "--save-dir", d])
+        logs = glob.glob(os.path.join(d, "train_log_*.txt"))
+        if not np.isfinite(res.recalls).all() or len(res.recalls) != 4:
+            fail(f"13c: finetune from .pt gave recalls {res.recalls}")
+        if not logs or "avg recall" not in open(logs[0]).read():
+            fail(f"13c: no run log with the result in {d}: {logs}")
+
+    leaves, optimizer = trainer.prepare(params)
+    batch = trainer._to_device(*next(trainer.dataset.train_batches(
+        trainer.cfg.batch_size, np.random.default_rng(SEED + 42))))
+    gen = torch.Generator(dev).manual_seed(SEED + 41)
+    rows = profiling.op_profile(
+        lambda: trainer.step(leaves, optimizer, batch, gen)[0], iters=3,
+        min_ms=0.0)
+    a_rows = [r for r in rows if "walk_kernel" in r["name"]]
+    print(json.dumps({"op_profile_top": rows[:8], "kernel_a_rows": a_rows,
+                      "phase_totals_s": profiling.phase_totals(),
+                      "cli_recalls": res.recalls}), flush=True)
+    if not a_rows or any(r["type"] != "kernel" for r in a_rows):
+        fail("13c: op_profile of a pretrain step lists no launch of kernel "
+             "A (walk_kernel)")
 
 
 def main() -> int:
@@ -3650,9 +3969,16 @@ def main() -> int:
         c_err, _ = phase_graph_level(dev, tu_root)
         errs["C"] = max(errs["C"], c_err)
         phase_fewshot(dev, tu_root)
-    # kernel A's count spans the ops path and the zoo's runs
+    a_13, trainer_13, params_13 = phase_host_data(dev, ds, graph)
+    ivf_launches = phase_ivf(dev)
+    phase_utilities(dev, trainer_13, params_13)
+    del trainer_13, params_13
+    # kernel A's count spans the ops path, the zoo's runs and 13a's epoch;
+    # C's and D-G's also 13b's calls at 10M keys
     launches["csr_gather_scale_segsum"] = launches.get(
-        "csr_gather_scale_segsum", 0) + zoo_a
+        "csr_gather_scale_segsum", 0) + zoo_a + a_13
+    for name, n in ivf_launches.items():
+        launches[name] = launches.get(name, 0) + n
     kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
     phase_step_timing(dev, trained)
     if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):

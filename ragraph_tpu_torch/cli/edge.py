@@ -20,9 +20,11 @@ PyTorch versions of the kernels):
   ``--resume`` as in the JAX CLI;
 - ``vanilla`` runs the training-free staged evaluation from the tables.
 
-Either package reads the other's ``pretrain_*.pkl``. Not ported yet, each
-exiting with a pointer to ROADMAP.md: reference ``.pt`` checkpoints and
-``--mesh``.
+Either package reads the other's ``pretrain_*.pkl``; ``--pre-model-path``
+also takes a reference ``.pt`` (:func:`~ragraph_tpu_torch.train.torch_import.
+tables_from_torch`). Each mode logs to the console and to
+``<save-dir>/train_log_<stamp>.txt``. ``--mesh`` exits with a pointer to
+ROADMAP.md.
 
 Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
 ``fine_tune.txt``, ``test_1.txt..test_N.txt`` (N=8 for amazon, else 4);
@@ -34,9 +36,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
-import logging
 import os
-import sys
 
 import numpy as np
 import torch
@@ -56,8 +56,11 @@ from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, EvolveGCNH,
                                            staged_dynamic, staged_finetune)
 from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
                                                 restore_checkpoint)
+from ragraph_tpu_torch.train.logging import RunLogger
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
+from ragraph_tpu_torch.train.torch_import import tables_from_torch
 from ragraph_tpu_torch.train.trainer import EdgeTrainer
+from ragraph_tpu_torch.utils.seed import seed_everything
 
 MODELS = {"RAGraph": RAGraphEdge, "GraphPro": GraphPro,
           "LightGCN": LightGCNEdge, "SGL": SGLPlugin,
@@ -145,17 +148,6 @@ def _cfg(args, phase, dataset_name, num_nodes=None):
         batch_size=args.batch_size, **extra)
 
 
-def _logger() -> logging.Logger:
-    log = logging.getLogger("ragraph_tpu_torch.edge")
-    if not log.handlers:
-        handler = logging.StreamHandler(sys.stderr)
-        handler.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        log.addHandler(handler)
-        log.setLevel(logging.INFO)
-        log.propagate = False
-    return log
-
-
 def _model_cls(args):
     """``--model`` with its optional ``--dynamic`` / ``--prompt`` cross as a
     class, or the refusal of the JAX CLI."""
@@ -193,7 +185,8 @@ def run_pretrain(args):
     """Train the model on the pretrain split, evaluate against the
     validation split, keep the best tables. Returns the checkpoint path."""
     dev = resolve_device(args.device)
-    log = _logger()
+    log = RunLogger(save_dir=args.save_dir, exp_name="edge-pretrain")
+    _, rng = seed_everything(args.seed)
     # the dynamic models are finetune-stage wrappers: their pretrain tables
     # come from GraphPro; --dynamic and --prompt play no part here
     model_cls = MODELS["GraphPro" if args.model in DYNAMIC_MODELS
@@ -206,17 +199,16 @@ def run_pretrain(args):
                       EdgeGraphArrays.from_dataset(ds, dev),
                       phase="pretrain")
     params = model.init_params(torch.Generator(dev).manual_seed(args.seed))
-    trainer = EdgeTrainer(model, ds, logger=log.info)
+    trainer = EdgeTrainer(model, ds, logger=log)
     result = trainer.train(
-        params, torch.Generator(dev).manual_seed(args.seed + 1),
-        rng=np.random.default_rng(args.seed))
+        params, torch.Generator(dev).manual_seed(args.seed + 1), rng=rng)
     keeper = BestCheckpointKeeper(args.save_dir,
                                   name=f"pretrain_{args.model}_{name}")
     keeper.update(float(result.best_perform["recall"][0]),
                   {"user_embedding": result.best_params["user_embedding"],
                    "item_embedding": result.best_params["item_embedding"]})
-    log.info(f"best recall {result.best_perform['recall'][0]:.5f}; "
-             f"checkpoint {keeper.path}")
+    log(f"best recall {result.best_perform['recall'][0]:.5f}; "
+        f"checkpoint {keeper.path}")
     out = os.path.join(args.save_dir, f"pretrain_{args.model}_{name}.json")
     with open(out, "w") as f:
         json.dump({"best_recall": float(result.best_perform["recall"][0]),
@@ -231,26 +223,26 @@ def run_finetune(args):
     if args.resume and not args.stage_ckpt_dir:
         raise SystemExit("--resume needs --stage-ckpt-dir (nowhere to "
                          "load the staged state from)")
-    if args.pre_model_path and args.pre_model_path.endswith(".pt"):
-        raise SystemExit(
-            "ragraph_tpu_torch.cli.edge: reference .pt checkpoints are not "
-            "yet ported (ROADMAP.md queue 1, item 9: train/torch_import.py)")
     dev = resolve_device(args.device)
-    log = _logger()
+    log = RunLogger(save_dir=args.save_dir, exp_name="edge-finetune")
+    seed_everything(args.seed)
     model_cls = _model_cls(args)
     train_rows, val_rows, ft_rows, stage_rows = _load_rows(args)
     name = os.path.basename(args.data_path)
 
     if args.pre_model_path:
-        tables = restore_checkpoint(args.pre_model_path)
+        if args.pre_model_path.endswith(".pt"):
+            tables = tables_from_torch(args.pre_model_path)
+        else:
+            tables = restore_checkpoint(args.pre_model_path)
     else:
         default = os.path.join(args.save_dir,
                                f"pretrain_{args.model}_{name}")
         if not os.path.exists(default + ".pkl"):
-            log.info("no pretrain checkpoint; running pretrain first")
+            log("no pretrain checkpoint; running pretrain first")
             run_pretrain(args)
         tables = restore_checkpoint(default)
-        log.info(f"loaded pretrain tables from {default}")
+        log(f"loaded pretrain tables from {default}")
 
     if _is_dynamic(args):
         result = staged_dynamic(
@@ -258,7 +250,7 @@ def run_finetune(args):
             cfg_factory=lambda phase: _cfg(args, phase, name),
             seed=args.seed, model_cls=model_cls, device=dev,
             mode=_dynamic_mode(args), hour_interval=args.hour_interval,
-            num_epochs=args.epochs, logger=log.info, val_rows=val_rows,
+            num_epochs=args.epochs, logger=log, val_rows=val_rows,
             checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
     else:
         result = staged_finetune(
@@ -266,12 +258,12 @@ def run_finetune(args):
             cfg_factory=lambda phase: _cfg(args, phase, name),
             seed=args.seed, device=dev, hour_interval=args.hour_interval,
             updt_inter=args.updt_inter, num_epochs=args.epochs,
-            logger=log.info, model_cls=model_cls, val_rows=val_rows,
+            logger=log, model_cls=model_cls, val_rows=val_rows,
             checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
-    log.info(f"recalls: {result.recalls}")
-    log.info(f"ndcgs:   {result.ndcgs}")
-    log.info(f"avg recall {result.avg_recall:.5f} "
-             f"avg ndcg {result.avg_ndcg:.5f}")
+    log(f"recalls: {result.recalls}")
+    log(f"ndcgs:   {result.ndcgs}")
+    log(f"avg recall {result.avg_recall:.5f} "
+        f"avg ndcg {result.avg_ndcg:.5f}")
     tag = args.model + "".join(f"-{x}" for x in (args.dynamic, args.prompt)
                                if x)
     out = os.path.join(args.save_dir, f"finetune_{tag}_{name}.json")
@@ -286,7 +278,8 @@ def run_vanilla(args):
     """Training-free staged eval: per stage, build the graph of all rows so
     far, generate, build the library, generate with RAG, evaluate."""
     dev = resolve_device(args.device)
-    log = _logger()
+    log = RunLogger(save_dir=args.save_dir, exp_name="edge-vanilla")
+    seed_everything(args.seed)
     train_rows, _, ft_rows, stage_rows = _load_rows(args)
     name = os.path.basename(args.data_path)
     tables = restore_checkpoint(
@@ -315,10 +308,10 @@ def run_vanilla(args):
         del user_emb, item_emb
         recalls.append(float(result["recall"][0]))
         ndcgs.append(float(result["ndcg"][0]))
-        log.info(f"stage {stage}: recall={recalls[-1]:.5f} "
-                 f"ndcg={ndcgs[-1]:.5f}")
-    log.info(f"avg recall {np.mean(recalls):.5f} "
-             f"avg ndcg {np.mean(ndcgs):.5f}")
+        log(f"stage {stage}: recall={recalls[-1]:.5f} "
+            f"ndcg={ndcgs[-1]:.5f}")
+    log(f"avg recall {np.mean(recalls):.5f} "
+        f"avg ndcg {np.mean(ndcgs):.5f}")
     return recalls, ndcgs
 
 

@@ -20,7 +20,8 @@ The mean and std of the accuracies go to
 The encoder comes from ``<save-dir>/model_<dataset>.pkl`` (a JAX
 ``PrePrompt`` tree or the port's ``state_dict``, through
 :func:`ragraph_tpu_torch.cli.node.load_encoder_state`) when that file holds
-two or more layers, else from a random two-layer initialisation.
+two or more layers, else from a random two-layer initialisation. The run
+logs to the console and to ``<save-dir>/train_log_<stamp>.txt``.
 
 Not ported yet, exiting with a pointer to ROADMAP.md: ``--mesh``.
 """
@@ -31,7 +32,6 @@ import argparse
 import json
 import logging
 import os
-import sys
 
 import numpy as np
 import torch
@@ -45,8 +45,12 @@ from ragraph_tpu_torch.device import resolve_device
 from ragraph_tpu_torch.models.ragraph_fewshot import (
     FEWSHOT_GRAPH_WEIGHTS, FEWSHOT_NODE_WEIGHTS, FewshotSupportSet,
     RAGraphFewshot, RAGraphFewshotConfig, fewshot_library_config)
+from ragraph_tpu_torch.train.logging import RunLogger
+from ragraph_tpu_torch.utils.seed import seed_everything
 
-log = logging.getLogger("ragraph_tpu_torch.fewshot")
+# main's RunLogger(exp_name="cli") sends the records of this logger and of
+# the other CLI module's to the console and <save-dir>/train_log_*.txt
+log = logging.getLogger("ragraph_tpu_torch.cli.fewshot")
 
 
 def build_parser():
@@ -231,9 +235,8 @@ def run_task(args, ds, encoder_state, task_i: int, device,
 
 def main(argv=None, observer: RunObserver | None = None) -> float:
     args = build_parser().parse_args(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s",
-                            stream=sys.stderr)
+    RunLogger(save_dir=args.save_dir, exp_name="cli")
+    seed_everything(args.seed)
     if args.mesh is not None:
         raise SystemExit("--mesh is not ported yet: ROADMAP.md, queue 1, "
                          "item 10")

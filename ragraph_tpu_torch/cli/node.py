@@ -24,7 +24,8 @@
 The encoder comes from ``<save-dir>/model_<dataset>.pkl`` (a pickle
 checkpoint of the JAX package's ``PrePrompt`` variables, with or without the
 heads, or of the port's ``state_dict``) when that file is there, else from a
-random initialisation, as in the JAX CLI.
+random initialisation, as in the JAX CLI. The run logs to the console and
+to ``<save-dir>/train_log_<stamp>.txt``.
 
 Not ported yet, exiting with a pointer to ROADMAP.md: ``--mesh``.
 """
@@ -36,7 +37,6 @@ import contextlib
 import json
 import logging
 import os
-import sys
 
 import numpy as np
 import torch
@@ -60,8 +60,12 @@ from ragraph_tpu_torch.rag.pretrain_aug import (FLAVORS, draw_view,
                                                 make_graphcl_views)
 from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
                                                 restore_checkpoint)
+from ragraph_tpu_torch.train.logging import RunLogger
+from ragraph_tpu_torch.utils.seed import seed_everything
 
-log = logging.getLogger("ragraph_tpu_torch.node")
+# main's RunLogger(exp_name="cli") sends the records of this logger and of
+# the other CLI module's to the console and <save-dir>/train_log_*.txt
+log = logging.getLogger("ragraph_tpu_torch.cli.node")
 
 
 def build_parser():
@@ -191,7 +195,7 @@ def run_pretrain(args, terms, flavors, device,
     """Pretrain the encoder on the loss ``terms`` and GraphCL ``flavors``
     of :func:`pretrain_terms`; returns the path of the best checkpoint."""
     obs = observer or RunObserver()
-    rng = np.random.default_rng(args.seed)
+    _, rng = seed_everything(args.seed)
     ds = load_dataset(args)
     pad = args.batch_size * max(g.features.shape[0] for g in ds.graphs)
     model = PrePrompt(ds.num_node_attributes, hidden=args.hidden,
@@ -321,6 +325,7 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
 
 
 def run_eval(args, device, observer: RunObserver | None = None) -> float:
+    seed_everything(args.seed)
     ds = load_dataset(args)
     encoder_state = load_encoder_state(args.save_dir, args.dataset)
     accs = []
@@ -344,9 +349,7 @@ def run_eval(args, device, observer: RunObserver | None = None) -> float:
 def main(argv=None, observer: RunObserver | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s",
-                            stream=sys.stderr)
+    RunLogger(save_dir=args.save_dir, exp_name="cli")
     if args.retrieve_rescore_pad and args.retrieve_dtype != "int8":
         parser.error("--retrieve-rescore-pad requires --retrieve-dtype int8")
     if args.mesh is not None:

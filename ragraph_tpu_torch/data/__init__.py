@@ -12,3 +12,6 @@ from ragraph_tpu_torch.data.tu import (  # noqa: F401
 from ragraph_tpu_torch.data.fewshot_export import (  # noqa: F401
     export_fewshot_graph_split, export_fewshot_splits, load_fewshot_split,
     sample_k_shot_graphs, sample_k_shot_nodes)
+from ragraph_tpu_torch.data.planetoid import (  # noqa: F401
+    adj_to_bias, load_planetoid, micro_f1, row_normalize_features,
+    sample_mask, standardize_data)

@@ -3,10 +3,11 @@
 
 Rows are ``user \\t items \\t times`` lines or ``(user, item, time)``
 tuples. The bipartite graph becomes a bidirectional, receiver-sorted edge
-array over ``U + I`` nodes with binorm weights and CSR bounds. The negative
-sampler is the JAX package's numpy rejection sampler (its
-``use_native=False`` path) and draws exactly as that does; the C++ parser
-and sampler are not ported yet (ROADMAP.md).
+array over ``U + I`` nodes with binorm weights and CSR bounds. Files are
+parsed and negatives drawn in C++ (``csrc/fastgraph.cpp`` through
+:mod:`ragraph_tpu_torch.utils.native`) unless the caller passes
+``use_native=False`` for the numpy path; either way the draws are the JAX
+package's, bit for bit, from the same generator.
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ import dataclasses
 from collections import defaultdict
 
 import numpy as np
+
+from ragraph_tpu_torch.utils.native import (negative_sample_native,
+                                            parse_edge_file_native)
 
 
 def timestamp_to_time_step(timestamps: np.ndarray, hour_interval: float,
@@ -25,10 +29,19 @@ def timestamp_to_time_step(timestamps: np.ndarray, hour_interval: float,
     return (timestamps - least_time) // int(hour_interval * 3600)
 
 
-def parse_edge_file(path_or_rows, has_time: bool = True):
-    """Parse a tab-separated edge file or an iterable of (u, i, t) rows."""
+def parse_edge_file(path_or_rows, has_time: bool = True,
+                    use_native: bool = True):
+    """Parse a tab-separated edge file or an iterable of (u, i, t) rows.
+
+    A file goes through the C++ parser, or with ``use_native=False`` through
+    a Python line loop; both give the same rows."""
     rows = []
     if isinstance(path_or_rows, str):
+        if use_native:
+            users, items, times = parse_edge_file_native(path_or_rows)
+            if not has_time:
+                times = np.zeros_like(times)
+            return list(zip(users.tolist(), items.tolist(), times.tolist()))
         with open(path_or_rows) as f:
             for line in f:
                 parts = line.strip().split("\t")
@@ -73,9 +86,18 @@ class EdgeDataset:
         return self.num_users + self.num_items
 
     def sample_negatives(self, users: np.ndarray, rng: np.random.Generator,
-                         n: int = 1, max_rounds: int = 100) -> np.ndarray:
+                         n: int = 1, max_rounds: int = 100,
+                         use_native: bool = True) -> np.ndarray:
         """Rejection-sample ``n`` negatives per user: items that are not
-        among the user's train interactions. Returns ``(len(users), n)``."""
+        among the user's train interactions. Returns ``(len(users), n)``.
+
+        The C++ sampler takes its seed from ``rng`` (one draw), so the
+        generator moves on as the JAX package's does; ``use_native=False``
+        draws with numpy, redrawing only the rejected entries."""
+        if use_native:
+            return negative_sample_native(
+                users, self._hist_keys, self.num_items,
+                seed=int(rng.integers(0, 2**63 - 1)), n_negs=n)
         out = rng.integers(0, self.num_items, size=(len(users), n))
         # int64 before the multiply: users arrive as int32, and
         # user * num_items passes 2**31 at production scale, after which

@@ -11,3 +11,4 @@ from ragraph_tpu_torch.rag.pretrain_aug import (  # noqa: F401
 from ragraph_tpu_torch.rag.fewshot import (  # noqa: F401
     FewShotBase, fewshot_mean_logits, fewshot_predict_labels,
     fewshot_predict_logits, fewshot_predict_loss)
+from ragraph_tpu_torch.rag.ivf import IVFIndex, build_ivf, ivf_search, kmeans  # noqa: F401

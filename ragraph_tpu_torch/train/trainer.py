@@ -5,7 +5,10 @@ Shuffled edge batches with host-sampled negatives, Adam, an evaluation after
 every epoch, the best-recall snapshot, and a patience stop. Where the JAX
 trainer jits one pure step that returns new arrays, this one makes the
 parameters leaf tensors and lets ``torch.optim.Adam`` update them in place;
-so the best-recall snapshot is a clone, not a reference. optax's ``adam``
+so the best-recall snapshot is a clone, not a reference. A background
+thread makes the next batches (:mod:`.prefetch`) while a step runs; with
+``RAGRAPH_MEM_ANALYSIS`` set, the device's memory after the first step is
+logged (:func:`.profiling.record_memory_analysis`). optax's ``adam``
 and torch's share their defaults (b1 0.9, b2 0.999, eps 1e-8 added outside
 the root), so the two trainers follow the same trajectory from the same
 batches and masks.
@@ -24,6 +27,8 @@ import torch
 from ragraph_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
+from ragraph_tpu_torch.train.prefetch import prefetch
+from ragraph_tpu_torch.train.profiling import record_memory_analysis
 
 
 @dataclasses.dataclass
@@ -175,13 +180,20 @@ class EdgeTrainer:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             losses = []
-            for users, pos, neg in self.dataset.train_batches(
-                    cfg.batch_size, rng, n_negs=n_negs, drop_remainder=True):
-                loss, _ = self.step(params, optimizer,
-                                    self._to_device(users, pos, neg),
-                                    generator)
-                # device scalars, read once per epoch
-                losses.append(loss)
+            # the next batches are sampled on a thread while this one trains
+            with prefetch(self.dataset.train_batches(
+                    cfg.batch_size, rng, n_negs=n_negs,
+                    drop_remainder=True), depth=2) as batches:
+                for users, pos, neg in batches:
+                    loss, _ = self.step(params, optimizer,
+                                        self._to_device(users, pos, neg),
+                                        generator)
+                    # device scalars, read once per epoch
+                    losses.append(loss)
+                    if (epoch == start_epoch and len(losses) == 1
+                            and os.environ.get("RAGRAPH_MEM_ANALYSIS")):
+                        record_memory_analysis(
+                            "edge_step", self.model.graph.device, self.log)
             nb = len(losses)
             ep_loss = float(torch.stack(losses).sum()) if losses else 0.0
             train_time = time.time() - t0

@@ -100,12 +100,15 @@ def _port_modules():
 
 def test_port_imports_without_jax():
     """Every port module imports in a process where ``jax`` cannot be
-    imported, and importing builds and loads no kernel."""
+    imported, and importing builds and loads no kernel and no C++
+    library."""
     code = ("import sys; sys.modules['jax'] = None\n"
             "import importlib\n"
             f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
             "from ragraph_tpu_torch import native\n"
             "assert native._lib is None\n"
+            "from ragraph_tpu_torch.utils import native as host\n"
+            "assert host._lib is None\n"
             "assert not any(m == 'ragraph_tpu' or m.startswith('ragraph_tpu.')"
             " for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

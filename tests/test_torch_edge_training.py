@@ -313,22 +313,26 @@ def test_adam_trajectory_matches_jax(data, monkeypatch, phase, lora):
         np.testing.assert_array_equal(t.numpy(), start[name])
 
 
-def test_trainers_follow_one_trajectory(data, monkeypatch):
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "cpp"])
+def test_trainers_follow_one_trajectory(data, monkeypatch, native):
     """Both ``EdgeTrainer.train`` loops from the same numpy generator: the
     same batches and negatives, so the same losses, metrics and tables,
-    epoch by epoch. The JAX side is held to its numpy sampler: the C++
-    one is switched off, and since the call that would reach it draws its
-    seed from the generator first, the dataset's method is bound with
+    epoch by epoch. ``cpp``: both samplers as they default, in C++.
+    ``numpy``: both held to their numpy samplers; on the JAX side the C++
+    one is switched off too, and since the call that would reach it draws
+    its seed from the generator first, each dataset's method is bound with
     ``use_native=False``."""
     jm, tm, jparams, tparams, _, _ = _setup(
         data, "GraphPro", "pretrain", monkeypatch, **ARMS["scatter-f32"],
         edge_dropout=0.0, lr=5e-3, early_stop_patience=50)
     monkeypatch.undo()
     jds, tds = data
-    monkeypatch.setattr(j_native, "negative_sample_native",
-                        lambda *a, **k: None)
-    monkeypatch.setattr(jds, "sample_negatives", functools.partial(
-        type(jds).sample_negatives, jds, use_native=False))
+    if not native:
+        monkeypatch.setattr(j_native, "negative_sample_native",
+                            lambda *a, **k: None)
+        for ds in (jds, tds):
+            monkeypatch.setattr(ds, "sample_negatives", functools.partial(
+                type(ds).sample_negatives, ds, use_native=False))
     jres = JEdgeTrainer(jm, jds, logger=lambda *_: None).train(
         jparams, jax.random.key(0), num_epochs=3,
         rng=np.random.default_rng(7))
@@ -347,22 +351,27 @@ def test_trainers_follow_one_trajectory(data, monkeypatch):
                                    rtol=0, atol=1e-5)
 
 
-def test_sampler_draws_as_jax_numpy_path(data):
+@pytest.mark.parametrize("native", [False, True], ids=["numpy", "cpp"])
+def test_sampler_draws_as_jax_numpy_path(data, native):
+    """The port's sampler draws as JAX's on the same path: numpy
+    (``use_native=False`` on both sides) or C++ (both defaults)."""
     jds, tds = data
     np.testing.assert_array_equal(tds._hist_keys, jds._hist_keys)
     users = np.arange(64, dtype=np.int32).repeat(3)
-    want = jds.sample_negatives(users, np.random.default_rng(1), n=4,
-                                use_native=False)
-    got = tds.sample_negatives(users, np.random.default_rng(1), n=4)
+    rng_j, rng_t = np.random.default_rng(1), np.random.default_rng(1)
+    want = jds.sample_negatives(users, rng_j, n=4, use_native=native)
+    got = tds.sample_negatives(users, rng_t, n=4, use_native=native)
     np.testing.assert_array_equal(got, want)
+    # the generators moved on alike
+    assert rng_t.integers(1 << 30) == rng_j.integers(1 << 30)
     keys = users.astype(np.int64)[:, None] * tds.num_items + got
     assert not np.isin(keys, tds._hist_keys).any()
     # ids past 2**31 / num_items: the int64 cast before the multiply
     big = dataclasses.replace(tds, num_items=1 << 20, _hist_keys=np.array(
         [(1 << 12) * (1 << 20) + 5], np.int64))
     out = big.sample_negatives(np.full(2000, 1 << 12, np.int32),
-                               np.random.default_rng(0))
-    assert out.shape == (2000, 1) and (out >= 0).all()
+                               np.random.default_rng(0), use_native=native)
+    assert out.shape == (2000, 1) and (out >= 0).all() and (out != 5).all()
 
 
 def test_trainer_best_snapshot_early_stop_and_resume(data, monkeypatch,

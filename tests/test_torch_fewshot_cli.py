@@ -7,7 +7,6 @@ CLI's message. The JAX CLIs on the port's ``state_dict`` file are pinned
 too: the fewshot CLI falls back, the node CLI raises."""
 
 import json
-import logging
 
 import numpy as np
 import pytest
@@ -132,11 +131,11 @@ def _pretrain(main, save_dir, layers, extra=()):
           str(save_dir), "--results-dir", str(save_dir)] + list(extra))
 
 
-def test_checkpoints_of_either_package(tmp_path, caplog):
+def test_checkpoints_of_either_package(tmp_path, capsys):
     """Two-layer checkpoints of both packages load (the encoder is the
     checkpoint's); one-layer ones give the random two-layer encoder with
-    the JAX CLI's message."""
-    caplog.set_level(logging.INFO, logger="ragraph_tpu_torch")
+    the JAX CLI's message (on the run's console, which is stderr). The
+    port's CLIs write their run logs into ``--save-dir``."""
     ckpts = {}
     for layers in (1, 2):
         ckpts["jax", layers] = tmp_path / f"jax{layers}"
@@ -145,22 +144,27 @@ def test_checkpoints_of_either_package(tmp_path, caplog):
         _pretrain(t_node.main, ckpts["port", layers], layers,
                   ["--device", "cpu"])
     for (side, layers), d in ckpts.items():
-        caplog.clear()
+        capsys.readouterr()
         probe = Probe()
         t_fewshot.main(["vanilla", "--save-dir", str(d), "--results-dir",
                         str(d), "--device", "cpu"] + SMALL, observer=probe)
+        console = capsys.readouterr().err
         tree = restore_checkpoint(str(d / "model_SYNTH"))
         want = preprompt_params_from_jax(tree) if side == "jax" else \
             {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
         if layers == 2:
-            assert FALLBACK not in caplog.text, side
+            assert FALLBACK not in console, side
             got = probe.encoder_state
             for k in ("gcn.convs.0.lin.weight", "gcn.convs.1.lin.weight"):
                 assert torch.equal(got[k], want[k]), (side, k)
         else:
             assert probe.encoder_state is None, side
-            assert FALLBACK in caplog.text, side
+            assert FALLBACK in console, side
             assert "gcn.convs.1.lin.weight" not in want
+        # the port's node (pretrain) and fewshot runs log to <save-dir>
+        logs = list(d.glob("train_log_*.txt"))
+        assert logs and any("results written to" in f.read_text()
+                            for f in logs), side
 
 
 def test_jax_clis_on_a_port_checkpoint(tmp_path, capsys):
@@ -178,11 +182,10 @@ def test_jax_clis_on_a_port_checkpoint(tmp_path, capsys):
                      "--test-times", "1", "--library-capacity", "4096"])
 
 
-def test_patience_restores_the_best_epoch(tmp_path, caplog):
+def test_patience_restores_the_best_epoch(tmp_path, capsys):
     """``--patience 1``: the run stops at the first epoch whose loss does
     not improve and restores the encoder as it was after the best epoch
     (snapshots taken after each epoch of the same run)."""
-    caplog.set_level(logging.INFO, logger="ragraph_tpu_torch")
 
     class EncoderProbe(Probe):
         def __init__(self):
@@ -208,7 +211,8 @@ def test_patience_restores_the_best_epoch(tmp_path, caplog):
                     "--results-dir", str(tmp_path), "--device", "cpu"]
                    + SMALL, observer=probe)
     losses, n = probe.losses, len(probe.losses)
-    assert 2 <= n < 8 and f"early stop at epoch {n - 1}" in caplog.text
+    assert 2 <= n < 8
+    assert f"early stop at epoch {n - 1}" in capsys.readouterr().err
     assert losses[-1] >= losses[-2]
     assert all(b < a for a, b in zip(losses[:-2], losses[1:-1]))
     best, last = probe.snapshots[-2], probe.snapshots[-1]

@@ -229,9 +229,14 @@ def test_cli_finetune_pretrains_when_no_checkpoint_and_resumes(tmp_path):
     assert again.recalls == first.recalls
     with pytest.raises(SystemExit, match="stage-ckpt-dir"):
         t_edge_cli.main(["finetune", "--resume", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        t_edge_cli.main(["finetune", "--device", "cpu", "--pre-model-path",
-                         "weights.pt"])
+    # a reference .pt (tables under "state_dict", nn.Embedding names)
+    tables = restore_checkpoint(str(tmp_path / "pretrain_GraphPro_SYNTH"))
+    pt = tmp_path / "weights.pt"
+    torch.save({"state_dict": {f"{k}.weight": torch.from_numpy(v)
+                               for k, v in tables.items()}}, pt)
+    from_pt = t_edge_cli.main(["finetune"] + args[:-2]
+                              + ["--pre-model-path", str(pt)])
+    assert from_pt.recalls == first.recalls
     # the zoo's refusals, before any work, with the JAX CLI's messages
     with pytest.raises(SystemExit, match="--dynamic requires a plugin"):
         t_edge_cli.main(["finetune", "--device", "cpu", "--model",

@@ -29,6 +29,7 @@ from ragraph_tpu.models import edge as jedge
 from ragraph_tpu.models.edge import dynamic as j_dynamic
 from ragraph_tpu.utils import native as j_native
 from ragraph_tpu_torch.cli import edge as t_cli
+from ragraph_tpu_torch.data.edgelist import EdgeDataset as TEdgeDataset
 from ragraph_tpu_torch.data.edgelist import load_edge_dataset
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.models import edge as tedge
@@ -92,9 +93,9 @@ def test_staged_dynamic_matches_jax(setup, monkeypatch, cls_name, mode):
                             for k, v in gru.items()})
     monkeypatch.setattr(j_native, "negative_sample_native",
                         lambda *a, **k: None)
-    monkeypatch.setattr(JEdgeDataset, "sample_negatives",
-                        functools.partialmethod(
-                            JEdgeDataset.sample_negatives, use_native=False))
+    for cls in (JEdgeDataset, TEdgeDataset):
+        monkeypatch.setattr(cls, "sample_negatives", functools.partialmethod(
+            cls.sample_negatives, use_native=False))
     cfg = dict(edge_dropout=0.0)
     want = jedge.staged_dynamic(
         train, stages[0], list(stages[:2]), tables,
