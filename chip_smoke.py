@@ -119,6 +119,29 @@ Phases (any failure exits non-zero):
    ``.pt`` with its run log, the ``phase()`` totals, and ``op_profile`` of
    one pretrain step listing kernel A's launches.
 
+14. the multi-device paths, after phase 13, with every rank on this card
+   over a gloo group (collectives staged through host memory, so their
+   times are not NCCL's) and the kernels built before the ranks start:
+   (a-d) ``ragraph_tpu_torch.bench.multi_device`` under
+   ``torch.distributed.run``, a world of two ranks (meshes ``dp=1,idx=2``
+   and ``dp=2,idx=1``) and one of four (``dp=2,idx=2``): (a) a RAGraph
+   pretrain and finetune step at phase 6's width with the tables over
+   ``idx`` and the batch over ``dp``, held on rank 0 to the same step on
+   one device (loss, every gradient, every parameter), replicated
+   parameters equal on every rank, kernel A 6 launches per rank per step;
+   (b) the refresh chunk's top-k (2,048 x 262,144 x 64, k = 10) by kernel C
+   and by D-G on each half of the rows against one device's answer; (c)
+   the huge-k fusion at the koubei shape (two chunks of 512 against
+   524,288 rows, k = 100,000, f32 and bf16): the threshold bit for bit one
+   device's, the count exact, the mean to 1e-5; (d) the node CLI's library
+   (65,536 rows, hidden 256) built sharded, equal to one device's build,
+   ``retrieve`` through kernel C on each shard equal; (e) ``cli.edge
+   pretrain`` and ``finetune`` with ``--mesh dp=1,idx=2 --dist-backend
+   gloo`` in two ranks, writing the JAX CLI's files and a run log, and a
+   world of one rank on NCCL (``--mesh dp=1,idx=1``) giving the
+   single-device result. The launches of (a-d) join the kernels line,
+   summed over the ranks.
+
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
 nothing of JAX and needs the repository beside it.
@@ -2017,6 +2040,22 @@ NODE_BATCH = 16
 NODE_CAPACITY = 65536       # the CLI's default
 
 
+def mesh_refusal(name, main, argv):
+    """A ``--mesh`` whose ``dp * idx`` is not the world size (this process
+    is a world of one) is refused before the process joins a group; phase
+    14 runs ``--mesh`` itself."""
+    import torch.distributed as dist
+    try:
+        main(argv + ["--mesh", "dp=2,idx=1"])
+    except ValueError as e:
+        if "dp*idx = 2*1 != 1 ranks" not in str(e):
+            fail(f"{name} --mesh dp=2,idx=1: {e}")
+    else:
+        fail(f"{name} --mesh dp=2,idx=1 ran in a world of one")
+    if dist.is_initialized():
+        fail(f"{name}: a refused --mesh joined a process group")
+
+
 def node_dataset():
     """The node and graph phases' data: ``NODE_GRAPHS`` synthetic graphs,
     and the (train, val, test) graph counts of the CLI's split."""
@@ -2238,14 +2277,7 @@ def phase_node_path(dev, tu_root):
     if "finetune_step_ms" not in out["finetune"] \
             or out["vanilla"]["finetune_losses"]:
         fail("cli.node: the finetune stages ran in the wrong mode")
-    try:
-        cli.main(["vanilla", "--mesh", "dp=1,idx=1"] + common)
-    except SystemExit as e:
-        if "ROADMAP.md" not in str(e):
-            fail(f"cli.node --mesh exited without a pointer to "
-                 f"ROADMAP.md: {e}")
-    else:
-        fail("cli.node --mesh ran")
+    mesh_refusal("cli.node", cli.main, ["vanilla"] + common)
     print(json.dumps({"node_path": out}), flush=True)
     return c_err
 
@@ -2677,14 +2709,7 @@ def phase_fewshot(dev, tu_root):
             or any(out["launches"].values()):
         fail(f"phase 11 launched kernels {out['launches']}: the fewshot "
              f"path takes the structure branch, which runs none")
-    try:
-        fs_cli.main(["vanilla", "--mesh", "dp=1,idx=1"] + common)
-    except SystemExit as e:
-        if "ROADMAP.md" not in str(e):
-            fail(f"cli.fewshot --mesh exited without a pointer to "
-                 f"ROADMAP.md: {e}")
-    else:
-        fail("cli.fewshot --mesh ran")
+    mesh_refusal("cli.fewshot", fs_cli.main, ["vanilla"] + common)
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps({"fewshot": out}), flush=True)
     print(json.dumps({
@@ -3901,6 +3926,163 @@ def phase_utilities(dev, trainer, params):
         fail("13c: op_profile of a pretrain step lists no launch of kernel "
              "A (walk_kernel)")
 
+# phase 14: (world size, meshes, parts) of each bench.multi_device run
+MD_RUNS = ((2, "1x2,2x1", "edge,retrieval,huge_k,library"), (4, "2x2", "edge"))
+MD_A_PER_STEP = 6           # 3 layers, forward and backward, on every rank
+MD_CLI = ["--data-path", "SYNTH", "--batch-size", "128", "--epochs", "1"]
+
+
+def torchrun(nproc, args, timeout=600):
+    """``python -m torch.distributed.run --standalone`` of ``nproc`` ranks
+    from the repository's root; fails the script with the ranks' output
+    when one fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), *args],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        fail(f"torch.distributed.run {args[:2]} exited {res.returncode}:\n"
+             f"{(res.stdout + res.stderr)[-6000:]}")
+    return res
+
+
+def md_summary(world, ranks, total, on_card=True):
+    """Print one world's results; check each rank's launches (on the card;
+    a CPU rehearsal runs the plain versions, which count none); add them
+    to ``total``."""
+    r0 = ranks[0]
+    for key, rec in r0.get("edge", {}).items():
+        a = [r["edge"][key]["launches"].get("csr_gather_scale_segsum", 0)
+             for r in ranks]
+        if on_card and any(n != MD_A_PER_STEP for n in a):
+            fail(f"14a {key}: kernel A launches per rank {a}, expected "
+                 f"{MD_A_PER_STEP} each")
+        if on_card and key.startswith("finetune") and any(
+                r["edge"][key]["launches"].get("fused_cosine_topk", 0) == 0
+                for r in ranks):
+            fail(f"14a {key}: a rank's finetune step launched no kernel C")
+        print(f"  14a {key}: loss {rec['loss']:.7f} (err {rec['loss_err']:.2e})"
+              f" grads err {rec.get('grad_err', float('nan')):.2e} params err "
+              f"{rec.get('param_err', float('nan')):.2e}; step "
+              f"{rec['step_ms']:.1f} ms on the mesh, "
+              f"{rec['single_step_ms']:.1f} ms on one device; A per rank {a}",
+              flush=True)
+    for method, rec in r0.get("retrieval", {}).items():
+        names = (("fused_cosine_topk",) if method == "approx" else
+                 ("bucket_max", "column_topk", "bucket_rescore", "row_topk"))
+        for r in ranks:
+            got = r["retrieval"][method]["launches"]
+            if on_card and any(got.get(n, 0) == 0 for n in names):
+                fail(f"14b {method}: rank {r['rank']} launched {got}")
+        print(f"  14b {method}: {rec['ms']:.2f} ms on idx={world} "
+              f"(collectives host-staged over gloo) vs "
+              f"{rec['single_ms']:.2f} ms on one device; scores err "
+              f"{rec['max_abs_err']:.2e} (tol {TOL_SCORE}), rows with "
+              f"ties {rec['tie_rows']}", flush=True)
+    for dtype, rec in r0.get("huge_k", {}).items():
+        print(f"  14c {dtype}: threshold bit for bit, counts exact, mean err "
+              f"{rec['mean_err']:.2e}; chunk ms {[round(x, 1) for x in rec['ms']]}"
+              f" on idx={world} vs {[round(x, 1) for x in rec['single_ms']]} "
+              f"on one device", flush=True)
+    if "library" in r0:
+        rec = r0["library"]
+        for r in ranks:
+            if on_card and r["library"]["launches"].get(
+                    "fused_cosine_topk", 0) == 0:
+                fail(f"14d: rank {r['rank']} retrieved without kernel C")
+        print(f"  14d library: fill {rec['fill']} = one device's, rows equal;"
+              f" build {rec['build_ms']:.0f} ms vs {rec['single_build_ms']:.0f}"
+              f" ms; retrieve {rec['retrieve_ms']:.2f} ms (first call "
+              f"{rec['retrieve_first_ms']:.2f}) vs "
+              f"{rec['single_retrieve_ms']:.2f} ms, scores err "
+              f"{rec['max_abs_err']:.2e}, rows with ties {rec['tie_rows']}",
+              flush=True)
+    for r in ranks:
+        for part in ("edge", "retrieval", "huge_k", "library"):
+            recs = r.get(part, {})
+            if part == "library" and recs:
+                recs = {"": recs}
+            for rec in recs.values():
+                for name, n in rec.get("launches", {}).items():
+                    total[name] = total.get(name, 0) + n
+        print(f"  rank {r['rank']} of {world}: {r['seconds']:.1f} s, "
+              f"host-staged collectives {r['host_staged']}", flush=True)
+
+
+def phase_multi_device(dev, small=False):
+    """Phase 14 (see the module doc); returns the launches of (a-d),
+    summed over the ranks. On a CPU ``dev`` (a rehearsal) the ranks run on
+    the CPU, at the bench's small size with ``small``."""
+    import torch
+
+    from ragraph_tpu_torch.cli import edge as cli
+    print("phase 14: multi-device, every rank on this card over gloo "
+          "(collectives staged through host memory: not NCCL times)",
+          flush=True)
+    on_card = dev.type == "cuda"
+    where = [] if on_card else ["--device", "cpu"]
+    if on_card:
+        torch.cuda.empty_cache()
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, meshes, parts in MD_RUNS:
+            out = os.path.join(tmp, f"md{world}")
+            t0 = time.perf_counter()
+            torchrun(world, ["-m", "ragraph_tpu_torch.bench.multi_device",
+                             "--out", out, "--meshes", meshes,
+                             "--parts", parts, *where]
+                     + (["--small"] if small else []))
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            print(f"  world of {world}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            md_summary(world, ranks, total, on_card)
+
+        # (e) the CLI: two ranks on this card over gloo, then a world of one
+        # on NCCL against the single-device run
+        t0 = time.perf_counter()
+        gloo = os.path.join(tmp, "gloo")
+        mesh = ["--save-dir", gloo, "--mesh", "dp=1,idx=2", "--dist-backend",
+                "gloo", *where]
+        torchrun(2, ["-m", "ragraph_tpu_torch.cli.edge", "pretrain",
+                     *MD_CLI, *mesh])
+        torchrun(2, ["-m", "ragraph_tpu_torch.cli.edge", "finetune",
+                     *MD_CLI, *mesh])
+        files, logs = cli_files(gloo)
+        want = ["finetune_RAGraph_SYNTH.json", "pretrain_RAGraph_SYNTH.json",
+                "pretrain_RAGraph_SYNTH.pkl"]
+        if files != want or len(logs) != 2:
+            fail(f"14e: the mesh CLI wrote {files} and run logs {logs}, "
+                 f"expected {want} and one log per mode")
+        with open(os.path.join(gloo, "finetune_RAGraph_SYNTH.json")) as f:
+            got = json.load(f)
+        if len(got["recalls"]) != 4 or not np.isfinite(got["recalls"]).all():
+            fail(f"14e: mesh finetune recalls {got['recalls']}")
+        nccl = os.path.join(tmp, "nccl")
+        torchrun(1, ["-m", "ragraph_tpu_torch.cli.edge", "finetune",
+                     *MD_CLI, "--save-dir", nccl, "--mesh", "dp=1,idx=1",
+                     *where])
+        one = cli.main(["finetune", *MD_CLI, "--save-dir",
+                        os.path.join(tmp, "one"), "--device", str(dev)])
+        with open(os.path.join(nccl, "finetune_RAGraph_SYNTH.json")) as f:
+            world1 = json.load(f)
+        err = float(np.max(np.abs(np.asarray(world1["recalls"])
+                                  - np.asarray(one.recalls))))
+        if err > 1e-3:
+            fail(f"14e: NCCL world of one {world1['recalls']} vs one device "
+                 f"{one.recalls}")
+        print(f"  14e: --mesh dp=1,idx=2 over gloo: recall@20 per stage "
+              f"{got['recalls']}, files {files}, {len(logs)} run logs; NCCL "
+              f"world of one vs one device: largest recall difference "
+              f"{err:.2e}; {time.perf_counter() - t0:.1f} s", flush=True)
+    return total
+
+
 
 def main() -> int:
     import torch
@@ -3973,11 +4155,15 @@ def main() -> int:
     ivf_launches = phase_ivf(dev)
     phase_utilities(dev, trainer_13, params_13)
     del trainer_13, params_13
+    md_launches = phase_multi_device(dev)
     # kernel A's count spans the ops path, the zoo's runs and 13a's epoch;
     # C's and D-G's also 13b's calls at 10M keys
     launches["csr_gather_scale_segsum"] = launches.get(
         "csr_gather_scale_segsum", 0) + zoo_a + a_13
     for name, n in ivf_launches.items():
+        launches[name] = launches.get(name, 0) + n
+    # phase 14's launches, summed over its ranks
+    for name, n in md_launches.items():
         launches[name] = launches.get(name, 0) + n
     kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
     phase_step_timing(dev, trained)

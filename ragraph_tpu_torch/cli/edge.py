@@ -23,8 +23,17 @@ PyTorch versions of the kernels):
 Either package reads the other's ``pretrain_*.pkl``; ``--pre-model-path``
 also takes a reference ``.pt`` (:func:`~ragraph_tpu_torch.train.torch_import.
 tables_from_torch`). Each mode logs to the console and to
-``<save-dir>/train_log_<stamp>.txt``. ``--mesh`` exits with a pointer to
-ROADMAP.md.
+``<save-dir>/train_log_<stamp>.txt``.
+
+``--mesh dp=D,idx=I`` runs one process per rank, launched by
+``python -m torch.distributed.run --nproc-per-node D*I -m
+ragraph_tpu_torch.cli.edge ...`` (a single process is a world of one):
+batches split over ``dp``; ``idx>1`` row-shards the embedding tables and
+runs the receiver-range propagation (``parallel/edge_sharded.py``), and
+only the base models take it, as in the JAX CLI. Rank 0 writes the files,
+which are those of a single-device run. ``--dist-backend`` (a flag of the
+port alone) picks the process group's backend: NCCL by default on the
+card, gloo on the CPU; gloo lets one card hold several ranks.
 
 Dataset layout: ``<data>/pretrain.txt``, ``pretrain_val.txt``,
 ``fine_tune.txt``, ``test_1.txt..test_N.txt`` (N=8 for amazon, else 4);
@@ -46,6 +55,7 @@ from ragraph_tpu_torch.data.edgelist import (load_edge_dataset, merge_rows,
                                              parse_edge_file)
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.device import resolve_device
+from ragraph_tpu_torch import parallel
 from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, EvolveGCNH,
                                            EvolveGCNO, GraphPro,
                                            GraphPromptEdge, LightGCNEdge,
@@ -107,11 +117,56 @@ def build_parser():
     p.add_argument("--pre-model-path", default=None)
     p.add_argument("--stage-ckpt-dir", default=None)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I")
+    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I",
+                   help="multi-device layout, one process per rank (python "
+                        "-m torch.distributed.run): batches split over dp; "
+                        "idx>1 row-shards the embedding tables and runs the "
+                        "receiver-range propagation (parallel/"
+                        "edge_sharded.py). idx>1 requires a base model "
+                        "(RAGraph/GraphPro/LightGCN). dp*idx must equal the "
+                        "world size.")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="with --mesh: the process group's backend (default "
+                        "nccl on the card, gloo on the CPU); gloo lets "
+                        "several ranks share one card")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch "
                         "versions of the kernels")
     return p
+
+
+def _make_mesh(args):
+    """``--mesh`` as ``(mesh, device)``: ``(None, --device)`` without it.
+    Refuses ``idx>1`` for the plugin, dynamic and prompt models in the JAX
+    CLI's words, before joining the process group."""
+    if not args.mesh:
+        return None, resolve_device(args.device)
+    if parallel.parse_mesh(args.mesh).get("idx", 1) > 1 and (
+            args.model not in ("RAGraph", "GraphPro", "LightGCN")
+            or args.dynamic or args.prompt):
+        raise SystemExit(
+            "--mesh with idx>1 (sharded tables + shard_map propagation) "
+            "supports the base models RAGraph/GraphPro/LightGCN; use a "
+            "dp-only mesh for the plugin/dynamic/prompt baselines")
+    return parallel.mesh_from_args(args.mesh, args.device, args.dist_backend)
+
+
+def _arrays(ds, dev, mesh):
+    arrays = EdgeGraphArrays.from_dataset(ds, dev)
+    n_idx = parallel.axis_size(mesh, "idx")
+    return arrays.with_sharding(n_idx) if n_idx > 1 else arrays
+
+
+def _logger(args, exp_name):
+    """The run's logger; its file only on the rank that writes."""
+    return RunLogger(save_dir=args.save_dir if parallel.is_writer()
+                     else None, exp_name=exp_name)
+
+
+def _write_json(path, obj):
+    if parallel.is_writer():
+        with open(path, "w") as f:
+            json.dump(obj, f, indent=2)
 
 
 def _load_rows(args):
@@ -184,8 +239,8 @@ def _dynamic_mode(args):
 def run_pretrain(args):
     """Train the model on the pretrain split, evaluate against the
     validation split, keep the best tables. Returns the checkpoint path."""
-    dev = resolve_device(args.device)
-    log = RunLogger(save_dir=args.save_dir, exp_name="edge-pretrain")
+    mesh, dev = _make_mesh(args)
+    log = _logger(args, "edge-pretrain")
     _, rng = seed_everything(args.seed)
     # the dynamic models are finetune-stage wrappers: their pretrain tables
     # come from GraphPro; --dynamic and --prompt play no part here
@@ -195,26 +250,28 @@ def run_pretrain(args):
     ds = load_edge_dataset(train_rows, [(u, i) for (u, i, *_) in val_rows],
                            hour_interval=args.hour_interval)
     name = os.path.basename(args.data_path)
-    model = model_cls(_cfg(args, "pretrain", name),
-                      EdgeGraphArrays.from_dataset(ds, dev),
-                      phase="pretrain")
+    model = model_cls(_cfg(args, "pretrain", name), _arrays(ds, dev, mesh),
+                      phase="pretrain", mesh=mesh)
     params = model.init_params(torch.Generator(dev).manual_seed(args.seed))
-    trainer = EdgeTrainer(model, ds, logger=log)
+    trainer = EdgeTrainer(model, ds, logger=log, mesh=mesh)
     result = trainer.train(
         params, torch.Generator(dev).manual_seed(args.seed + 1), rng=rng)
     keeper = BestCheckpointKeeper(args.save_dir,
                                   name=f"pretrain_{args.model}_{name}")
-    keeper.update(float(result.best_perform["recall"][0]),
-                  {"user_embedding": result.best_params["user_embedding"],
-                   "item_embedding": result.best_params["item_embedding"]})
+    if parallel.is_writer():
+        keeper.update(float(result.best_perform["recall"][0]),
+                      {"user_embedding": result.best_params["user_embedding"],
+                       "item_embedding": result.best_params[
+                           "item_embedding"]})
+    parallel.barrier()      # the other ranks may read the checkpoint next
+    path = os.path.join(args.save_dir, f"pretrain_{args.model}_{name}.pkl")
     log(f"best recall {result.best_perform['recall'][0]:.5f}; "
-        f"checkpoint {keeper.path}")
-    out = os.path.join(args.save_dir, f"pretrain_{args.model}_{name}.json")
-    with open(out, "w") as f:
-        json.dump({"best_recall": float(result.best_perform["recall"][0]),
-                   "best_ndcg": float(result.best_perform["ndcg"][0])},
-                  f, indent=2)
-    return keeper.path
+        f"checkpoint {path}")
+    _write_json(os.path.join(args.save_dir,
+                             f"pretrain_{args.model}_{name}.json"),
+                {"best_recall": float(result.best_perform["recall"][0]),
+                 "best_ndcg": float(result.best_perform["ndcg"][0])})
+    return path
 
 
 def run_finetune(args):
@@ -223,8 +280,8 @@ def run_finetune(args):
     if args.resume and not args.stage_ckpt_dir:
         raise SystemExit("--resume needs --stage-ckpt-dir (nowhere to "
                          "load the staged state from)")
-    dev = resolve_device(args.device)
-    log = RunLogger(save_dir=args.save_dir, exp_name="edge-finetune")
+    mesh, dev = _make_mesh(args)
+    log = _logger(args, "edge-finetune")
     seed_everything(args.seed)
     model_cls = _model_cls(args)
     train_rows, val_rows, ft_rows, stage_rows = _load_rows(args)
@@ -250,15 +307,16 @@ def run_finetune(args):
             cfg_factory=lambda phase: _cfg(args, phase, name),
             seed=args.seed, model_cls=model_cls, device=dev,
             mode=_dynamic_mode(args), hour_interval=args.hour_interval,
-            num_epochs=args.epochs, logger=log, val_rows=val_rows,
-            checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
+            num_epochs=args.epochs, logger=log, mesh=mesh,
+            val_rows=val_rows, checkpoint_dir=args.stage_ckpt_dir,
+            resume=args.resume)
     else:
         result = staged_finetune(
             train_rows, ft_rows, stage_rows, tables,
             cfg_factory=lambda phase: _cfg(args, phase, name),
             seed=args.seed, device=dev, hour_interval=args.hour_interval,
             updt_inter=args.updt_inter, num_epochs=args.epochs,
-            logger=log, model_cls=model_cls, val_rows=val_rows,
+            logger=log, model_cls=model_cls, mesh=mesh, val_rows=val_rows,
             checkpoint_dir=args.stage_ckpt_dir, resume=args.resume)
     log(f"recalls: {result.recalls}")
     log(f"ndcgs:   {result.ndcgs}")
@@ -266,19 +324,18 @@ def run_finetune(args):
         f"avg ndcg {result.avg_ndcg:.5f}")
     tag = args.model + "".join(f"-{x}" for x in (args.dynamic, args.prompt)
                                if x)
-    out = os.path.join(args.save_dir, f"finetune_{tag}_{name}.json")
-    with open(out, "w") as f:
-        json.dump({"recalls": result.recalls, "ndcgs": result.ndcgs,
-                   "avg_recall": result.avg_recall,
-                   "avg_ndcg": result.avg_ndcg}, f, indent=2)
+    _write_json(os.path.join(args.save_dir, f"finetune_{tag}_{name}.json"),
+                {"recalls": result.recalls, "ndcgs": result.ndcgs,
+                 "avg_recall": result.avg_recall,
+                 "avg_ndcg": result.avg_ndcg})
     return result
 
 
 def run_vanilla(args):
     """Training-free staged eval: per stage, build the graph of all rows so
     far, generate, build the library, generate with RAG, evaluate."""
-    dev = resolve_device(args.device)
-    log = RunLogger(save_dir=args.save_dir, exp_name="edge-vanilla")
+    mesh, dev = _make_mesh(args)
+    log = _logger(args, "edge-vanilla")
     seed_everything(args.seed)
     train_rows, _, ft_rows, stage_rows = _load_rows(args)
     name = os.path.basename(args.data_path)
@@ -287,6 +344,8 @@ def run_vanilla(args):
     params = params_from_jax({"user_embedding": tables["user_embedding"],
                               "item_embedding": tables["item_embedding"]},
                              dev)
+    if parallel.axis_size(mesh, "idx") > 1:
+        params = {k: parallel.shard_rows(mesh, v) for k, v in params.items()}
 
     all_rows = [train_rows, ft_rows, *stage_rows]
     recalls, ndcgs = [], []
@@ -296,8 +355,8 @@ def run_vanilla(args):
         ds = load_edge_dataset(prompt_rows, stage_rows[stage - 1],
                                hour_interval=args.hour_interval)
         cfg = _cfg(args, "vanilla", name, num_nodes=ds.num_nodes)
-        arrays = EdgeGraphArrays.from_dataset(ds, dev)
-        model = RAGraphEdge(cfg, arrays, phase="vanilla")
+        model = RAGraphEdge(cfg, _arrays(ds, dev, mesh), phase="vanilla",
+                            mesh=mesh)
         u0, i0 = model.generate(params)
         model.make_resource_graph(u0, i0,
                                   torch.Generator(dev).manual_seed(stage))
@@ -317,10 +376,6 @@ def run_vanilla(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("ragraph_tpu_torch.cli.edge: --mesh is not yet "
-                         "ported (ROADMAP.md queue 1, item 10: "
-                         "multi-device)")
     if args.mode == "pretrain":
         return run_pretrain(args)
     if args.mode == "vanilla":

@@ -23,12 +23,17 @@ The encoder comes from ``<save-dir>/model_<dataset>.pkl`` (a JAX
 two or more layers, else from a random two-layer initialisation. The run
 logs to the console and to ``<save-dir>/train_log_<stamp>.txt``.
 
-Not ported yet, exiting with a pointer to ROADMAP.md: ``--mesh``.
+``--mesh dp=D,idx=I`` (one process per rank, launched by ``python -m
+torch.distributed.run``): the library is built sharded over ``idx`` and
+retrieved through the sharded index, the encoder and the support set are
+replicated, and the fine-tune batches split over ``dp``. Rank 0 writes the
+files. ``--dist-backend`` (the port's own) as in ``cli.edge``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -36,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from ragraph_tpu_torch import parallel
 from ragraph_tpu_torch.cli.node import (RunObserver, load_dataset,
                                         load_encoder_state)
 from ragraph_tpu_torch.data.batching import flat_batches, stacked_batches
@@ -86,7 +92,15 @@ def build_parser():
     p.add_argument("--save-dir", default="modelset")
     p.add_argument("--results-dir", default="results")
     p.add_argument("--library-capacity", type=int, default=65536)
-    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I")
+    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I",
+                   help="multi-device layout, one process per rank (python "
+                        "-m torch.distributed.run): the library is built "
+                        "sharded over idx, fine-tune batches split over dp "
+                        "with the encoder and support set replicated. "
+                        "dp*idx must equal the world size.")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="with --mesh: the process group's backend (default "
+                        "nccl on the card, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch "
                         "versions of the kernels")
@@ -131,8 +145,10 @@ def load_support(args, task_i: int, train, num_class: int,
 
 
 def run_task(args, ds, encoder_state, task_i: int, device,
-             observer: RunObserver | None = None) -> float:
-    """One task of the protocol; returns its test accuracy."""
+             observer: RunObserver | None = None, mesh=None) -> float:
+    """One task of the protocol; returns its test accuracy. With ``mesh``
+    the library is sharded over ``idx`` when that axis is over 1 and the
+    fine-tune steps split their batches over ``dp``."""
     obs = observer or RunObserver()
     rng = np.random.default_rng(task_i)
     dsi = ds.shuffle(rng)
@@ -184,9 +200,32 @@ def run_task(args, ds, encoder_state, task_i: int, device,
                                 num_classes=num_class, device=device)
         return lib_batches(graphs)
 
+    shard_lib = parallel.axis_size(mesh, "idx") > 1
+    if mesh is not None:
+        parallel.replicate(mesh, state.encoder)
+        state = dataclasses.replace(
+            state, support=parallel.replicate(mesh, state.support))
+        if shard_lib:
+            state = dataclasses.replace(state, library=(
+                parallel.sharded_library_init(
+                    mesh, args.library_capacity, cfg.emb_size, num_class,
+                    num_anchors=cfg.library.num_anchors, device=device)))
+
+    def build(state, graphs, generator):
+        """The library append: on the sharded store with ``idx`` over 1
+        (every rank builds the same entries, each writes its rows)."""
+        if not shard_lib:
+            return task.build_library(state, lib_batches(graphs), generator)
+
+        def encode(features, adj, node_mask=None):
+            return task._encode(state, features, adj, node_mask)
+        return dataclasses.replace(state, library=(
+            parallel.build_sharded_library(
+                mesh, state.library, encode, lib_batches(graphs),
+                cfg.library, generator)))
+
     with obs.stage("library_build_train"):
-        state = task.build_library(state, lib_batches(train.graphs),
-                                   gen(task_i + 100))
+        state = build(state, train.graphs, gen(task_i + 100))
     obs.after("library_build_train", task=task, state=state, libcfg=libcfg,
               train=train, val=val, pad=pad)
 
@@ -197,7 +236,8 @@ def run_task(args, ds, encoder_state, task_i: int, device,
         best_loss, best_params, trigger = float("inf"), None, 0
         for epoch in range(args.epochs):
             with obs.stage("finetune_epoch"):
-                losses = [task.train_step(state, optimizer, b, step_gen)
+                losses = [task.train_step(state, optimizer, b, step_gen,
+                                          mesh=mesh)
                           for b in batches]
             obs.after("finetune_epoch", losses=losses)
             epoch_loss = torch.stack(losses).mean()
@@ -223,8 +263,7 @@ def run_task(args, ds, encoder_state, task_i: int, device,
 
     # the protocol appends the val entries before the test
     with obs.stage("library_build_val"):
-        state = task.build_library(state, lib_batches(val.graphs),
-                                   gen(task_i + 300))
+        state = build(state, val.graphs, gen(task_i + 300))
     obs.after("library_build_val", task=task, state=state, libcfg=libcfg,
               train=train, val=val, pad=pad)
     with obs.stage("test_accuracy"):
@@ -235,12 +274,12 @@ def run_task(args, ds, encoder_state, task_i: int, device,
 
 def main(argv=None, observer: RunObserver | None = None) -> float:
     args = build_parser().parse_args(argv)
-    RunLogger(save_dir=args.save_dir, exp_name="cli")
+    mesh, device = parallel.mesh_from_args(args.mesh, args.device,
+                                           args.dist_backend)
+    RunLogger(save_dir=args.save_dir if parallel.is_writer() else None,
+              exp_name="cli")
     seed_everything(args.seed)
-    if args.mesh is not None:
-        raise SystemExit("--mesh is not ported yet: ROADMAP.md, queue 1, "
-                         "item 10")
-    device = resolve_device(args.device)
+    device = device or resolve_device(args.device)
     ds = load_dataset(args)
     encoder_state = load_two_layer_encoder(args.save_dir, args.dataset)
     (observer or RunObserver()).after("checkpoint",
@@ -249,19 +288,21 @@ def main(argv=None, observer: RunObserver | None = None) -> float:
     accs = []
     for task_i in range(args.test_times):
         accs.append(100.0 * run_task(args, ds, encoder_state, task_i, device,
-                                     observer))
+                                     observer, mesh=mesh))
         log.info("task %d/%d: accuracy %.4f", task_i + 1, args.test_times,
                  accs[-1])
     mean, std = float(np.mean(accs)), float(np.std(accs))
     log.info("shots=%d Mean: [%.4f]  Std: [%.4f]", args.shots, mean, std)
-    os.makedirs(args.results_dir, exist_ok=True)
     out = os.path.join(
         args.results_dir,
         f"fewshot_{args.mode}_{args.level}_{args.dataset}"
         f"_shot{args.shots}.json")
-    with open(out, "w") as f:
-        json.dump({"mean": mean, "std": std, "accuracy": accs}, f, indent=4)
-    log.info("results written to %s", out)
+    if parallel.is_writer():
+        os.makedirs(args.results_dir, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"mean": mean, "std": std, "accuracy": accs}, f,
+                      indent=4)
+        log.info("results written to %s", out)
     return mean
 
 

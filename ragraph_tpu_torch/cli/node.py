@@ -27,12 +27,18 @@ heads, or of the port's ``state_dict``) when that file is there, else from a
 random initialisation, as in the JAX CLI. The run logs to the console and
 to ``<save-dir>/train_log_<stamp>.txt``.
 
-Not ported yet, exiting with a pointer to ROADMAP.md: ``--mesh``.
+``--mesh dp=D,idx=I`` (``finetune`` / ``vanilla``; one process per rank,
+launched by ``python -m torch.distributed.run``): the library is built
+sharded over ``idx`` (``parallel/sharded_library.py``; the store never
+exists whole on one device) and retrieved through the sharded index, and
+the fine-tune batches split over ``dp`` with replicated parameters. Rank 0
+writes the files. ``--dist-backend`` (the port's own) as in ``cli.edge``.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import contextlib
 import json
 import logging
@@ -41,6 +47,7 @@ import os
 import numpy as np
 import torch
 
+from ragraph_tpu_torch import parallel
 from ragraph_tpu_torch.convert import preprompt_params_from_jax
 from ragraph_tpu_torch.data.batching import flat_batches, stacked_batches
 from ragraph_tpu_torch.data.synthetic import synthetic_tu_dataset
@@ -99,7 +106,17 @@ def build_parser():
     p.add_argument("--retrieve-rescore-pad", type=int, default=0,
                    help="with --retrieve-dtype int8: exact-rescore "
                         "k+PAD int8 candidates")
-    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I")
+    p.add_argument("--mesh", default=None, metavar="dp=D,idx=I",
+                   help="multi-device layout for finetune/vanilla, one "
+                        "process per rank (python -m "
+                        "torch.distributed.run): the library is BUILT "
+                        "sharded over idx (parallel/sharded_library.py), "
+                        "fine-tune batches split over dp with replicated "
+                        "params. dp*idx must equal the world size; the "
+                        "library capacity must divide by idx.")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="with --mesh: the process group's backend (default "
+                        "nccl on the card, gloo on the CPU)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch "
                         "versions of the kernels")
@@ -241,8 +258,10 @@ def run_pretrain(args, terms, flavors, device,
 
 
 def eval_once(args, ds, encoder_state, seed_i: int, device,
-              observer: RunObserver | None = None) -> float:
-    """One seeded run of the protocol; returns the test accuracy."""
+              observer: RunObserver | None = None, mesh=None) -> float:
+    """One seeded run of the protocol; returns the test accuracy. With
+    ``mesh`` the library is sharded over ``idx`` when that axis is over 1
+    and the fine-tune steps split their batches over ``dp``."""
     obs = observer or RunObserver()
     rng = np.random.default_rng(seed_i)
     ds = ds.shuffle(rng)
@@ -284,6 +303,26 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
         return stacked_batches(graphs, args.batch_size, num_classes=num_class,
                                num_graph_classes=num_class, device=device)
 
+    shard_lib = parallel.axis_size(mesh, "idx") > 1
+    if mesh is not None:
+        parallel.replicate(mesh, state.encoder)
+        parallel.replicate(mesh, state.decoder)
+        if shard_lib:
+            state = dataclasses.replace(state, library=(
+                parallel.sharded_library_init(
+                    mesh, args.library_capacity, cfg.emb_size, num_class,
+                    num_anchors=cfg.library.num_anchors, device=device)))
+
+    def build(state, graphs, generator):
+        """The library append: on the sharded store with ``idx`` over 1
+        (every rank builds the same entries, each writes its rows)."""
+        if not shard_lib:
+            return task.build_library(state, lib_batches(graphs), generator)
+        return dataclasses.replace(state, library=(
+            parallel.build_sharded_library(
+                mesh, state.library, task.encoder_fn(state),
+                lib_batches(graphs), cfg.library, generator)))
+
     def task_batches(graphs):
         """The node task's block-diagonal batches, the graph task's
         stacked ones."""
@@ -293,8 +332,7 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
         return lib_batches(graphs)
 
     with obs.stage("library_build_train"):
-        state = task.build_library(state, lib_batches(train.graphs),
-                                   gen(seed_i + 1))
+        state = build(state, train.graphs, gen(seed_i + 1))
     obs.after("library_build_train", task=task, state=state, libcfg=libcfg,
               train=train, val=val, pad=pad)
 
@@ -304,7 +342,8 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
         noise_gen = gen(seed_i + 2)
         for epoch in range(args.epochs):
             with obs.stage("finetune_epoch"):
-                losses = [task.train_step(state, optimizer, b, noise_gen)
+                losses = [task.train_step(state, optimizer, b, noise_gen,
+                                          mesh=mesh)
                           for b in batches]
             obs.after("finetune_epoch", losses=losses)
             if epoch % 10 == 0:     # the only host read of the losses
@@ -315,8 +354,7 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
 
     # the protocol appends the val entries before the test
     with obs.stage("library_build_val"):
-        state = task.build_library(state, lib_batches(val.graphs),
-                                   gen(seed_i + 3))
+        state = build(state, val.graphs, gen(seed_i + 3))
     obs.after("library_build_val", task=task, state=state, libcfg=libcfg,
               train=train, val=val, pad=pad)
     with obs.stage("test_accuracy"):
@@ -324,37 +362,41 @@ def eval_once(args, ds, encoder_state, seed_i: int, device,
     return acc
 
 
-def run_eval(args, device, observer: RunObserver | None = None) -> float:
+def run_eval(args, device, observer: RunObserver | None = None,
+             mesh=None) -> float:
     seed_everything(args.seed)
     ds = load_dataset(args)
     encoder_state = load_encoder_state(args.save_dir, args.dataset)
     accs = []
     for i in range(args.test_times):
         accs.append(100.0 * eval_once(args, ds, encoder_state, i, device,
-                                      observer))
+                                      observer, mesh=mesh))
         log.info("run %d/%d: accuracy %.4f", i + 1, args.test_times,
                  accs[-1])
     mean, std = float(np.mean(accs)), float(np.std(accs))
     log.info("Mean: [%.4f]  Std: [%.4f]", mean, std)
-    os.makedirs(args.results_dir, exist_ok=True)
     tag = "noise" if args.noise else args.mode
     out = os.path.join(args.results_dir,
                        f"{tag}_{args.level}_{args.dataset}.json")
-    with open(out, "w") as f:
-        json.dump({"mean": mean, "std": std, "accuracy": accs}, f, indent=4)
-    log.info("results written to %s", out)
+    if parallel.is_writer():
+        os.makedirs(args.results_dir, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"mean": mean, "std": std, "accuracy": accs}, f,
+                      indent=4)
+        log.info("results written to %s", out)
     return mean
 
 
 def main(argv=None, observer: RunObserver | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    RunLogger(save_dir=args.save_dir, exp_name="cli")
     if args.retrieve_rescore_pad and args.retrieve_dtype != "int8":
         parser.error("--retrieve-rescore-pad requires --retrieve-dtype int8")
-    if args.mesh is not None:
-        raise SystemExit("--mesh is not ported yet: ROADMAP.md, queue 1, "
-                         "item 10")
+    mesh, mesh_dev = (parallel.mesh_from_args(args.mesh, args.device,
+                                              args.dist_backend)
+                      if args.mode != "pretrain" else (None, None))
+    RunLogger(save_dir=args.save_dir if parallel.is_writer() else None,
+              exp_name="cli")
     if args.mode == "pretrain":
         try:
             terms, flavors = pretrain_terms(args.pretrain_loss)
@@ -362,7 +404,8 @@ def main(argv=None, observer: RunObserver | None = None):
             parser.error(str(e))
         return run_pretrain(args, terms, flavors, resolve_device(args.device),
                             observer)
-    return run_eval(args, resolve_device(args.device), observer)
+    return run_eval(args, mesh_dev or resolve_device(args.device), observer,
+                    mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -82,8 +82,8 @@ def make_dynamic(plugin_cls, mode: str):
         bpr_in_cal_loss = True
         _computing_meta = False
 
-        def __init__(self, cfg, graph, phase: str = "finetune"):
-            super().__init__(cfg, graph, phase)
+        def __init__(self, cfg, graph, phase: str = "finetune", mesh=None):
+            super().__init__(cfg, graph, phase, mesh=mesh)
             self.meta_layers = None
             self.last_emb = None
 
@@ -139,6 +139,7 @@ class DynamicBase(TemporalLightGCN):
 
     use_time = False
     use_rag = False
+    rows_independent = False
 
     def _gate(self, params, all_emb, generator, training: bool = False):
         return all_emb
@@ -183,8 +184,8 @@ class DynamicBase(TemporalLightGCN):
 class Roland(DynamicBase):
     """ROLAND: a GRU per layer against the meta model's layers."""
 
-    def __init__(self, cfg, graph, phase: str = "finetune"):
-        super().__init__(cfg, graph, phase)
+    def __init__(self, cfg, graph, phase: str = "finetune", mesh=None):
+        super().__init__(cfg, graph, phase, mesh=mesh)
         self.meta_layers = None     # [(N, E)] of the meta model
 
     def set_meta_layers(self, meta_layers):
@@ -223,8 +224,8 @@ class EvolveGCNH(DynamicBase):
     """EvolveGCN-H: a GRU step of the table against the previous stage's
     embeddings."""
 
-    def __init__(self, cfg, graph, phase: str = "finetune"):
-        super().__init__(cfg, graph, phase)
+    def __init__(self, cfg, graph, phase: str = "finetune", mesh=None):
+        super().__init__(cfg, graph, phase, mesh=mesh)
         self.last_emb = None        # (N, E) of the previous stage
 
     def set_last_emb(self, last_emb):

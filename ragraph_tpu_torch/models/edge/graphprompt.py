@@ -33,13 +33,14 @@ class GraphPromptEdge(TemporalLightGCN):
 
     use_time = False
     use_rag = False
+    rows_independent = False
 
     def __init__(self, cfg, graph, phase: str = "finetune",
-                 prompt_mode: str = "graphprompt"):
+                 prompt_mode: str = "graphprompt", mesh=None):
         if prompt_mode not in PROMPT_MODES:
             raise ValueError(f"prompt_mode must be one of {PROMPT_MODES}, "
                              f"got {prompt_mode!r}")
-        super().__init__(cfg, graph, phase)
+        super().__init__(cfg, graph, phase, mesh=mesh)
         self.prompt_mode = prompt_mode
 
     def _gate(self, params, all_emb, generator, training: bool = False):

@@ -36,6 +36,7 @@ class PluginBase(TemporalLightGCN):
     (dropout-free) learned gate at finetune, no LoRA."""
 
     use_rag = False
+    rows_independent = False
 
     @property
     def use_time(self):  # type: ignore[override]

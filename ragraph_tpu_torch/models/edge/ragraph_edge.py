@@ -24,7 +24,15 @@ a training step live in small methods (``_draw_salt``, ``_noise_indices``)
 and in ``nn/gating.py``, which a test can replace to feed both packages
 the same numbers.
 
-Not ported yet (ROADMAP.md): the multi-chip paths.
+Multi-device (``mesh=`` with an ``idx`` axis over 1, the base models only):
+the propagation runs per receiver range on each rank
+(:mod:`ragraph_tpu_torch.parallel.edge_sharded`, kernel A on the shard) on a
+graph that carries :meth:`EdgeGraphArrays.with_sharding`'s arrays; tables
+given as this rank's row block (``EdgeTrainer`` places them so) are
+all-gathered first, so every layer comes back whole and the loss, the RAG
+fusion and ``generate`` read full tables as on one device; and the huge-k
+fusion runs on the rank's rows of the library
+(:func:`ragraph_tpu_torch.parallel.sharded_huge_k_fuse`).
 """
 
 from __future__ import annotations
@@ -120,6 +128,9 @@ class EdgeGraphArrays:
     time_norm_send: torch.Tensor | None = None
     recv_plan: WalkPlan | None = None
     send_plan: WalkPlan | None = None
+    # receiver-range shards for the multi-device propagation
+    # (parallel.edge_sharded.ShardedEdges, on the host); see with_sharding
+    sharded: Any = None
 
     @classmethod
     def from_dataset(cls, ds: EdgeDataset,
@@ -172,6 +183,19 @@ class EdgeGraphArrays:
             f: _plan_to(getattr(self, f), dev) for f in _PLAN_FIELDS
             if getattr(self, f) is not None})
 
+    def with_sharding(self, n_shards: int) -> "EdgeGraphArrays":
+        """Attach receiver-range shards for the multi-device propagation.
+        The node count is padded up to a multiple of ``n_shards`` inside
+        them (``sharded.num_nodes``); the propagation pads the table with
+        zero rows, which have no edges, and slices them off."""
+        from ragraph_tpu_torch.parallel.edge_sharded import (
+            shard_edges_by_receiver)
+        n_pad = -(-self.num_nodes // n_shards) * n_shards
+        sh = shard_edges_by_receiver(
+            self.senders.cpu().numpy(), self.receivers.cpu().numpy(),
+            self.edge_norm.cpu().numpy(), n_pad, n_shards)
+        return dataclasses.replace(self, sharded=sh)
+
     @property
     def device(self) -> torch.device:
         return self.senders.device
@@ -203,12 +227,24 @@ class TemporalLightGCN:
 
     use_time: bool = True
     use_rag: bool = False
+    # the loss is a mean of per-row terms of the batch, so a data-parallel
+    # rank may train on its share of the rows (EdgeTrainer); models whose
+    # loss couples the batch's rows (in-batch contrastive views, per-row
+    # draws) set False and every rank takes the whole batch
+    rows_independent: bool = True
 
     def __init__(self, cfg: EdgeModelConfig, graph: EdgeGraphArrays,
-                 phase: str = "pretrain"):
+                 phase: str = "pretrain", mesh=None):
+        from ragraph_tpu_torch.parallel.mesh import axis_size
+        if axis_size(mesh, "idx") > 1 and type(self) not in _SHARDABLE:
+            raise ValueError(
+                f"{type(self).__name__}: tables shard over idx only in the "
+                f"base models (LightGCNEdge, GraphPro, RAGraphEdge); give "
+                f"it a mesh with idx=1")
         self.cfg = cfg
         self.graph = graph
         self.phase = phase
+        self.mesh = mesh             # multi-device: sharded propagation
         self.resource_keys = None    # (R, E) library, not parameters
         self.resource_values = None
 
@@ -319,7 +355,26 @@ class TemporalLightGCN:
             return sorted_segment_sum_grad(msgs, g.recv_indptr, g.receivers)
         return scatter_sum(msgs, g.receivers, g.num_nodes)
 
+    def _idx(self) -> int:
+        from ragraph_tpu_torch.parallel.mesh import axis_size
+        return axis_size(self.mesh, "idx")
+
+    def _use_sharded(self, g) -> bool:
+        """The multi-device propagation applies when a mesh with an
+        ``idx`` axis over 1 is set and the graph carries shards."""
+        return self._idx() > 1 and getattr(g, "sharded", None) is not None
+
     def _propagate_layers(self, g, all_emb, weights, w_send, impl):
+        """The full layer stack under the chosen backend; with
+        :meth:`_use_sharded` the receiver-range path, whose per-step
+        receiver-order ``weights`` carry the dropout and time folds onto
+        the shards (``w_send`` is derived there from the same vector)."""
+        if self._use_sharded(g):
+            from ragraph_tpu_torch.parallel.edge_sharded import (
+                sharded_propagate_per_step)
+            return sharded_propagate_per_step(
+                self.mesh, all_emb, g.sharded, self.cfg.num_layers,
+                weights, bf16=self._bf16())
         return lightgcn_propagate(all_emb, g.senders, g.receivers, weights,
                                   g.num_nodes, self.cfg.num_layers,
                                   recv_indptr=g.recv_indptr, impl=impl,
@@ -366,12 +421,26 @@ class TemporalLightGCN:
         return (self.phase == "finetune" and self.use_rag
                 and self.cfg.use_lora)
 
+    def _tables(self, params):
+        """The two tables whole: a table given as this rank's row block of
+        an ``idx``-sharded one (fewer rows than the graph's count) is
+        all-gathered over ``idx``, differentiably."""
+        u, it = params["user_embedding"], params["item_embedding"]
+        if self._idx() > 1:
+            from ragraph_tpu_torch.parallel.collectives import all_gather
+            g = self.graph
+            if u.shape[0] != g.num_users:
+                u = all_gather(u, self.mesh, "idx")[: g.num_users]
+            if it.shape[0] != g.num_items:
+                it = all_gather(it, self.mesh, "idx")[: g.num_items]
+        return u, it
+
     def _effective_tables(self, params, generator, training: bool):
         """The base tables plus the LoRA delta. With
         ``lora_train_factors=False`` the factors are detached: the delta is
         a constant bias, and a trainer leaves the factors out of its
         optimizer (Adam on a zero gradient changes nothing)."""
-        u, it = params["user_embedding"], params["item_embedding"]
+        u, it = self._tables(params)
         if self._lora():
             cfg = self.cfg
             drop_gen = (generator if training and cfg.emb_dropout > 0
@@ -489,9 +558,27 @@ class TemporalLightGCN:
             keys_n = keys_n.to(torch.bfloat16)
         elif cfg.retrieve_dtype == "int8" and not big_k:
             keys_n = quantize_keys_i8(keys_n, normalized=True)
+        # multi-device: the huge-k branch runs on this rank's rows of the
+        # library whenever the row count divides the idx axis
+        n_idx = self._idx()
+        shard_fuse = big_k and n_idx > 1 and res_keys.shape[0] % n_idx == 0
+        if shard_fuse:
+            from ragraph_tpu_torch.parallel.mesh import axis_index
+            from ragraph_tpu_torch.parallel.sharded_selection import (
+                sharded_huge_k_fuse)
+            rows = res_keys.shape[0] // n_idx
+            lo = axis_index(self.mesh, "idx") * rows
+            keys_loc = keys_n[lo:lo + rows]
+            values_loc = res_values[lo:lo + rows]
         means, counts = [], []
         for s in range(0, qn, chunk):
             qc = query_emb[s:s + chunk]
+            if shard_fuse:
+                mean, count = sharded_huge_k_fuse(self.mesh, qc, keys_loc,
+                                                  values_loc, k)
+                means.append(mean)
+                counts.append(count[:, None])
+                continue
             if big_k:
                 # bf16 keys give bf16 scores and the 16-bit selection
                 scores = l2_normalize(qc).to(keys_n.dtype) @ keys_n.T
@@ -671,6 +758,10 @@ class RAGraphEdge(TemporalLightGCN):
 
     use_time = True
     use_rag = True
+
+
+# the classes whose tables may shard over idx
+_SHARDABLE = (TemporalLightGCN, LightGCNEdge, GraphPro, RAGraphEdge)
 
 
 def edge_config_for(dataset_name: str, phase: str,

@@ -25,6 +25,12 @@ embeddings.
 Every draw of a stage comes from generators seeded by ``(seed, stage,
 purpose)``, never from what earlier stages consumed, so a run resumed from
 a stage checkpoint repeats the uninterrupted run exactly.
+
+With ``mesh`` (one process per rank) every rank runs the loop on the same
+draws: batches split over ``dp``, and with an ``idx`` axis over 1 the
+stage graphs carry receiver-range shards and the tables shard over it
+(:class:`~ragraph_tpu_torch.train.trainer.EdgeTrainer`); rank 0 alone
+writes the stage checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ from ragraph_tpu_torch.models.edge.dynamic import ema_merge
 from ragraph_tpu_torch.models.edge.ragraph_edge import (EdgeGraphArrays,
                                                         RAGraphEdge)
 from ragraph_tpu_torch.ops.similarity import l2_normalize
+from ragraph_tpu_torch.parallel import is_writer
+from ragraph_tpu_torch.parallel.mesh import axis_size
 from ragraph_tpu_torch.train.checkpoint import to_host
 from ragraph_tpu_torch.train.trainer import EdgeTrainer
 
@@ -115,7 +123,9 @@ def _stage_state_path(checkpoint_dir: str) -> str:
 def _save_stage_state(checkpoint_dir: str, state: dict) -> None:
     """Persist the staged loop's carried state: everything a stage reads
     from earlier ones. Written to a temporary file and renamed, so a crash
-    in mid-write leaves the previous stage's state whole."""
+    in mid-write leaves the previous stage's state whole. Rank 0 writes."""
+    if not is_writer():
+        return
     os.makedirs(checkpoint_dir, exist_ok=True)
     path = _stage_state_path(checkpoint_dir)
     tmp = path + ".tmp"
@@ -161,6 +171,17 @@ def _bucket(n_rows: int) -> int:
     return -((-2 * n_rows) // 4096) * 4096
 
 
+def _arrays_fn(mesh, dev: torch.device) -> Callable:
+    """A dataset's graph arrays on ``dev``, with receiver-range shards when
+    the mesh's ``idx`` axis is over 1."""
+    n_shards = axis_size(mesh, "idx")
+
+    def arrays(ds):
+        g = EdgeGraphArrays.from_dataset(ds, dev)
+        return g.with_sharding(n_shards) if n_shards > 1 else g
+    return arrays
+
+
 def _tree_to(tree, dev: torch.device):
     """Tensors (or numpy arrays) of a nested dict as f32 tensors on
     ``dev``."""
@@ -196,11 +217,8 @@ def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
     stage, and a resumed run equals an uninterrupted one bit for bit on the
     CPU.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device staged training is not ported yet (ROADMAP.md "
-            "queue 1, item 10)")
     dev = resolve_device(device)
+    arrays = _arrays_fn(mesh, dev)
     base_ds = load_edge_dataset(
         pretrain_rows, val_rows if val_rows is not None else stage_rows[0],
         hour_interval=hour_interval)
@@ -236,9 +254,8 @@ def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
             hour_interval=hour_interval, num_users=num_users,
             num_items=num_items, phase="finetune",
             user_hist=all_rows[:stage], pad_edges_to=ft_bucket)
-        model = model_cls(cfg_factory("finetune"),
-                          EdgeGraphArrays.from_dataset(ft_dataset, dev),
-                          phase="finetune")
+        model = model_cls(cfg_factory("finetune"), arrays(ft_dataset),
+                          phase="finetune", mesh=mesh)
         params = model.init_params(gen(1), pretrained_tables=(
             _tree_to(tables["user_embedding"], dev),
             _tree_to(tables["item_embedding"], dev)))
@@ -265,7 +282,7 @@ def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
             model.set_last_emb(last_emb)
 
         logger(f"--- dynamic stage {stage} ({mode})")
-        trainer = EdgeTrainer(model, ft_dataset, logger=logger)
+        trainer = EdgeTrainer(model, ft_dataset, logger=logger, mesh=mesh)
         result = trainer.train(params, gen(2), num_epochs=num_epochs,
                                rng=np.random.default_rng(stage))
         recalls.append(float(result.best_perform["recall"][0]))
@@ -323,12 +340,12 @@ def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
       resume: with ``checkpoint_dir``, continue after the last completed
         stage; equal bit for bit to an uninterrupted run on the CPU.
       stop_after_stage: return after this stage (its checkpoint written).
+      mesh: a ``DeviceMesh``: batches split over ``dp``; with an ``idx``
+        axis over 1 the tables row-shard over it and the propagation runs
+        per receiver range (see the module doc).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device staged finetuning is not ported yet (ROADMAP.md "
-            "queue 1, item 10)")
     dev = resolve_device(device)
+    arrays = _arrays_fn(mesh, dev)
     base_ds = load_edge_dataset(
         pretrain_rows, val_rows if val_rows is not None else stage_rows[0],
         hour_interval=hour_interval)
@@ -372,9 +389,8 @@ def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
             prompt_rows, all_rows[ft_idx], hour_interval=hour_interval,
             num_users=num_users, num_items=num_items,
             pad_edges_to=prompt_bucket)
-        pre_model = model_cls(cfg_factory("for_tune"),
-                              EdgeGraphArrays.from_dataset(pre_dataset, dev),
-                              phase="for_tune")
+        pre_model = model_cls(cfg_factory("for_tune"), arrays(pre_dataset),
+                              phase="for_tune", mesh=mesh)
         # init_params supplies whatever else the class needs to generate;
         # the tables come from the merge
         pre_params = pre_model.init_params(gen(5))
@@ -390,16 +406,15 @@ def staged_finetune(pretrain_rows, finetune_rows, stage_rows: list,
             hour_interval=hour_interval, num_users=num_users,
             num_items=num_items, phase="finetune",
             user_hist=all_rows[:ft_idx], pad_edges_to=ft_bucket)
-        model = model_cls(cfg_factory("finetune"),
-                          EdgeGraphArrays.from_dataset(ft_dataset, dev),
-                          phase="finetune")
+        model = model_cls(cfg_factory("finetune"), arrays(ft_dataset),
+                          phase="finetune", mesh=mesh)
         if model.use_rag:
             model.make_resource_graph(res_u, res_i, gen(2))
         params = model.init_params(gen(3), pretrained_tables=(pre_u, pre_i))
 
         logger(f"--- stage {stage}: ft rows={len(all_rows[ft_idx])} "
                f"test users={len(ft_dataset.test_user_dict)}")
-        trainer = EdgeTrainer(model, ft_dataset, logger=logger)
+        trainer = EdgeTrainer(model, ft_dataset, logger=logger, mesh=mesh)
         result = trainer.train(params, gen(4), num_epochs=num_epochs,
                                rng=np.random.default_rng(stage))
 

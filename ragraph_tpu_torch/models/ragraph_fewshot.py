@@ -269,11 +269,12 @@ class RAGraphFewshot:
 
     # -- training ----------------------------------------------------------
 
-    def loss_node(self, state: RAGraphFewshotState, graph: DenseGraph,
-                  generator: torch.Generator | None = None,
-                  **draws) -> torch.Tensor:
-        """Masked cross entropy over the cosine-to-prototype scores;
-        ``draws`` (``anchors``, ``noise_idx``) go to :meth:`forward_node`."""
+    def loss_terms_node(self, state: RAGraphFewshotState,
+                        graph: DenseGraph,
+                        generator: torch.Generator | None = None, **draws):
+        """Per-node cross entropy over the cosine-to-prototype scores and
+        the node mask, ``(N,)`` each; ``draws`` (``anchors``,
+        ``noise_idx``) go to :meth:`forward_node`."""
         protos = self.prototypes(state)
         logits = self.forward_node(state, graph, training=True,
                                    generator=generator, protos=protos,
@@ -281,14 +282,12 @@ class RAGraphFewshot:
         logp = torch.log_softmax(fewshot_predict_logits(protos, logits),
                                  dim=-1)
         per_node = -(graph.labels * logp).sum(dim=-1)
-        m = graph.node_mask.to(per_node.dtype)
-        return (per_node * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return per_node, graph.node_mask.to(per_node.dtype)
 
-    def loss_graph(self, state: RAGraphFewshotState, batch: dict,
-                   generator: torch.Generator | None = None,
-                   **draws) -> torch.Tensor:
-        """Cross entropy over the cosine-to-prototype scores, averaged over
-        the batch's real graphs."""
+    def loss_terms_graph(self, state: RAGraphFewshotState, batch: dict,
+                         generator: torch.Generator | None = None, **draws):
+        """Per-graph cross entropy over the cosine-to-prototype scores and
+        the real-graph mask, ``(B,)`` each."""
         protos = self.prototypes(state)
         logits = self.forward_graph(state, batch, training=True,
                                     generator=generator, protos=protos,
@@ -296,8 +295,23 @@ class RAGraphFewshot:
         logp = torch.log_softmax(fewshot_predict_logits(protos, logits),
                                  dim=-1)
         per_graph = -(batch["graph_onehot"] * logp).sum(dim=-1)
-        gmask = batch["node_mask"].any(dim=1).to(per_graph.dtype)
-        return (per_graph * gmask).sum() / torch.clamp_min(gmask.sum(), 1.0)
+        return per_graph, batch["node_mask"].any(dim=1).to(per_graph.dtype)
+
+    def loss_node(self, state: RAGraphFewshotState, graph: DenseGraph,
+                  generator: torch.Generator | None = None,
+                  **draws) -> torch.Tensor:
+        """Masked cross entropy over the cosine-to-prototype scores (the
+        masked mean of :meth:`loss_terms_node`)."""
+        per, m = self.loss_terms_node(state, graph, generator, **draws)
+        return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)
+
+    def loss_graph(self, state: RAGraphFewshotState, batch: dict,
+                   generator: torch.Generator | None = None,
+                   **draws) -> torch.Tensor:
+        """Cross entropy over the cosine-to-prototype scores, averaged over
+        the batch's real graphs."""
+        per, m = self.loss_terms_graph(state, batch, generator, **draws)
+        return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
     def make_optimizer(self, state: RAGraphFewshotState, lr: float = 1e-4,
                        weight_decay: float = 1e-4) -> torch.optim.Optimizer:
@@ -310,15 +324,27 @@ class RAGraphFewshot:
 
     def train_step(self, state: RAGraphFewshotState,
                    optimizer: torch.optim.Optimizer, batch,
-                   generator: torch.Generator | None = None,
+                   generator: torch.Generator | None = None, mesh=None,
                    **draws) -> torch.Tensor:
         """One AdamW step of the level's loss, in place; returns the loss
-        before the step (a device scalar)."""
-        loss_fn = self.loss_node if self.cfg.level == "node" \
-            else self.loss_graph
+        before the step (a device scalar). With ``mesh`` as
+        :meth:`RAGraphNode.train_step <ragraph_tpu_torch.models.
+        ragraph_node.RAGraphNode.train_step>`: the whole batch forward on
+        every rank, the loss over its ``dp`` share of the rows."""
+        node = self.cfg.level == "node"
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(state, batch, generator, **draws)
-        loss.backward()
+        if mesh is None:
+            loss_fn = self.loss_node if node else self.loss_graph
+            loss = loss_fn(state, batch, generator, **draws)
+            loss.backward()
+        else:
+            from ragraph_tpu_torch.parallel.dp import (backward_row_share,
+                                                       sync_grads)
+            terms_fn = self.loss_terms_node if node \
+                else self.loss_terms_graph
+            loss = backward_row_share(
+                mesh, *terms_fn(state, batch, generator, **draws))
+            sync_grads(mesh, state.parameters())
         optimizer.step()
         return loss.detach()
 

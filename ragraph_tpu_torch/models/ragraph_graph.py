@@ -106,17 +106,16 @@ class RAGraphGraph(RAGraphNode):
         return (1.0 - cfg.label_weight) * decoded \
             + cfg.label_weight * rag_label
 
-    def loss(self, state: RAGraphNodeState, batch: dict,
-             generator: torch.Generator | None = None,
-             noise: torch.Tensor | None = None) -> torch.Tensor:
-        """Soft-target cross entropy over the ``log_softmax`` of the
-        probability "logits", averaged over the batch's real graphs."""
+    def loss_terms(self, state: RAGraphNodeState, batch: dict,
+                   generator: torch.Generator | None = None,
+                   noise: torch.Tensor | None = None):
+        """Per-graph soft-target cross entropy over the ``log_softmax`` of
+        the probability "logits", and the real-graph mask, ``(B,)`` each."""
         logits = self.forward(state, batch, training=True,
                               generator=generator, noise=noise)
         logp = torch.log_softmax(logits, dim=-1)
         per_graph = -(batch["graph_onehot"] * logp).sum(dim=-1)
-        gmask = _graph_mask(batch).to(per_graph.dtype)
-        return (per_graph * gmask).sum() / torch.clamp_min(gmask.sum(), 1.0)
+        return per_graph, _graph_mask(batch).to(per_graph.dtype)
 
     def accuracy(self, state: RAGraphNodeState, batches) -> float:
         """Argmax accuracy over the real graphs of an iterable of stacked

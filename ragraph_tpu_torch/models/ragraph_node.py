@@ -143,18 +143,25 @@ class RAGraphNode:
 
     # -- training ----------------------------------------------------------
 
-    def loss(self, state: RAGraphNodeState, graph: DenseGraph,
-             generator: torch.Generator | None = None,
-             noise_idx: torch.Tensor | None = None) -> torch.Tensor:
-        """Masked soft-target cross entropy over the ``log_softmax`` of the
-        probability "logits", as the reference's
-        ``F.cross_entropy(logits, onehot)`` does."""
+    def loss_terms(self, state: RAGraphNodeState, graph: DenseGraph,
+                   generator: torch.Generator | None = None,
+                   noise_idx: torch.Tensor | None = None):
+        """The loss's per-node terms and weights, ``(N,)`` each: soft-target
+        cross entropy over the ``log_softmax`` of the probability "logits",
+        as the reference's ``F.cross_entropy(logits, onehot)``, and the
+        node mask. :meth:`loss` is ``Σ terms·w / max(Σ w, 1)``."""
         logits = self.forward(state, graph, training=True,
                               generator=generator, noise_idx=noise_idx)
         logp = torch.log_softmax(logits, dim=-1)
         per_node = -(graph.labels * logp).sum(dim=-1)
-        m = graph.node_mask.to(per_node.dtype)
-        return (per_node * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return per_node, graph.node_mask.to(per_node.dtype)
+
+    def loss(self, state: RAGraphNodeState, graph: DenseGraph,
+             generator: torch.Generator | None = None, **draws
+             ) -> torch.Tensor:
+        """The masked mean of :meth:`loss_terms`."""
+        per, m = self.loss_terms(state, graph, generator, **draws)
+        return (per * m).sum() / torch.clamp_min(m.sum(), 1.0)
 
     def make_optimizer(self, state: RAGraphNodeState,
                        lr: float = 1e-3) -> torch.optim.Optimizer:
@@ -164,13 +171,27 @@ class RAGraphNode:
 
     def train_step(self, state: RAGraphNodeState,
                    optimizer: torch.optim.Optimizer, batch,
-                   generator: torch.Generator | None = None,
+                   generator: torch.Generator | None = None, mesh=None,
                    **draws) -> torch.Tensor:
         """One Adam step, in place; returns the loss before the step (a
-        device scalar). ``draws`` go to :meth:`loss` (``noise_idx``)."""
+        device scalar). ``draws`` go to :meth:`loss` (``noise_idx``).
+
+        With ``mesh`` every rank runs the forward on the whole batch (the
+        GCN reads every row of the block-diagonal graph) and takes the
+        loss over its ``dp`` share of the rows; numerators and counts are
+        summed apart (:func:`ragraph_tpu_torch.parallel.dp.
+        backward_row_share`), and the replicated parameters' gradients
+        summed over the mesh."""
         optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(state, batch, generator, **draws)
-        loss.backward()
+        if mesh is None:
+            loss = self.loss(state, batch, generator, **draws)
+            loss.backward()
+        else:
+            from ragraph_tpu_torch.parallel.dp import (backward_row_share,
+                                                       sync_grads)
+            loss = backward_row_share(
+                mesh, *self.loss_terms(state, batch, generator, **draws))
+            sync_grads(mesh, state.parameters())
         optimizer.step()
         return loss.detach()
 

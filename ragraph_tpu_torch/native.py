@@ -5,7 +5,9 @@ that needs a kernel, :func:`lib` compiles every source with its own ``nvcc``
 process (all started together), links them into one shared library under
 ``build/`` (listed in ``.gitignore``) and loads it with ``ctypes``. The
 library's file name carries a hash of the sources, so an edited kernel is
-rebuilt and an unchanged one is reused. Importing this module runs nothing.
+rebuilt and an unchanged one is reused. A file lock in ``build/`` lets one
+process build while others that need the library (the ranks of a
+multi-process run) wait for it. Importing this module runs nothing.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -107,8 +110,16 @@ def build(verbose: bool = False) -> tuple[Path, float, str]:
     out = _library_path()
     if out.exists() and not verbose:
         return out, 0.0, ""
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists() and not verbose:     # another process built it
+            return out, 0.0, ""
+        return _build(out, verbose)
+
+
+def _build(out: Path, verbose: bool) -> tuple[Path, float, str]:
+    nvcc = _nvcc()
     flags = ["-std=c++17", "-O3", ARCH, "-Xcompiler", "-fPIC", "-lineinfo"]
     if verbose:
         flags += ["-Xptxas", "-v"]

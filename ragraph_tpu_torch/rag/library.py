@@ -13,7 +13,10 @@
 - :func:`retrieve` is a cosine top-k with fill masking
   (:func:`ragraph_tpu_torch.ops.topk.cosine_topk`: above 32,768 rows the
   fused CUDA kernel on the card), the structure-weighted variant, and both
-  noise modes.
+  noise modes. On a store sharded over a mesh
+  (:mod:`ragraph_tpu_torch.parallel.sharded_library`) it takes the local
+  top-k of each shard and merges
+  (:mod:`ragraph_tpu_torch.parallel.sharded_index`).
 
 Every function that draws takes its draws as an optional argument and
 otherwise draws from the caller's ``torch.Generator``.
@@ -22,7 +25,7 @@ otherwise draws from the caller's ``torch.Generator``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -58,7 +61,12 @@ class LibraryConfig:
 
 @dataclasses.dataclass
 class ToyGraphLibrary:
-    """Fixed-capacity key/value/label/position store (+1 dump row)."""
+    """Fixed-capacity key/value/label/position store (+1 dump row).
+
+    With ``mesh`` set the store is sharded over the mesh's ``axis_name``:
+    the arrays are this rank's ``capacity / D`` rows of a store of exactly
+    ``capacity`` rows (no dump row), and ``fill`` is replicated
+    (:mod:`ragraph_tpu_torch.parallel.sharded_library`)."""
 
     keys: torch.Tensor        # (capacity+1, E)
     values: torch.Tensor      # (capacity+1, E)
@@ -66,10 +74,17 @@ class ToyGraphLibrary:
     positions: torch.Tensor   # (capacity+1, A)
     fill: torch.Tensor        # 0-d int32, on the store's device
     capacity: int
+    mesh: Any = None
+    axis_name: str = "idx"
 
     @property
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.capacity, device=self.fill.device) < self.fill
+        """Which rows hold entries (this rank's rows on a sharded store)."""
+        rows = self.keys.shape[0] if self.mesh is not None else self.capacity
+        ids = torch.arange(rows, device=self.fill.device)
+        if self.mesh is not None:
+            ids = ids + self.mesh.get_local_rank(self.axis_name) * rows
+        return ids < self.fill
 
     def live(self):
         """The capacity-trimmed views that retrieval reads (no dump row)."""
@@ -80,7 +95,8 @@ class ToyGraphLibrary:
         return ToyGraphLibrary(self.keys.to(device), self.values.to(device),
                                self.labels.to(device),
                                self.positions.to(device),
-                               self.fill.to(device), self.capacity)
+                               self.fill.to(device), self.capacity,
+                               self.mesh, self.axis_name)
 
 
 def library_init(capacity: int, emb_size: int, num_classes: int,
@@ -112,8 +128,12 @@ def library_append(lib: ToyGraphLibrary, keys: torch.Tensor,
     library, which carries the new fill; rows below the old fill are not
     touched. Several rows may be written to the dump row in no fixed order:
     nothing reads it (:meth:`ToyGraphLibrary.live`). No host read: the fill
-    stays on the device and clamps at the capacity.
+    stays on the device and clamps at the capacity. A sharded store takes
+    :func:`ragraph_tpu_torch.parallel.sharded_library_append`.
     """
+    if lib.mesh is not None:
+        raise ValueError("library_append: the store is sharded over a mesh; "
+                         "use parallel.sharded_library_append")
     valid = valid.bool()
     valid_i = valid.to(torch.int32)
     pos = lib.fill + torch.cumsum(valid_i, dim=0) - valid_i
@@ -266,6 +286,19 @@ def build_library(lib: ToyGraphLibrary, encoder_fn: Callable, batches,
     ``node_mask (B,N)`` and, for graph-level libraries, ``graph_onehot``).
     Appends, never resets: repeated calls grow the store. The encoder runs
     without gradients: the library holds buffers, not parameters."""
+    return build_library_with(lib, encoder_fn, batches, cfg, generator,
+                              draws_per_batch, append_fn=library_append)
+
+
+def build_library_with(lib: ToyGraphLibrary, encoder_fn: Callable, batches,
+                       cfg: LibraryConfig,
+                       generator: torch.Generator | None = None,
+                       draws_per_batch=None, *,
+                       append_fn: Callable) -> ToyGraphLibrary:
+    """The build loop of :func:`build_library` with its append as an
+    argument, ``append_fn(lib, keys, values, labels, positions, valid)``;
+    the sharded store passes its own
+    (:func:`ragraph_tpu_torch.parallel.build_sharded_library`)."""
     for i, batch in enumerate(batches):
         with torch.no_grad():
             entries = build_entries_batch(
@@ -273,7 +306,7 @@ def build_library(lib: ToyGraphLibrary, encoder_fn: Callable, batches,
                 batch["node_mask"], batch.get("graph_onehot"), cfg,
                 generator,
                 draws=None if draws_per_batch is None else draws_per_batch[i])
-        lib = library_append(lib, *entries)
+        lib = append_fn(lib, *entries)
     return lib
 
 
@@ -305,6 +338,15 @@ def retrieve(lib: ToyGraphLibrary, search_keys: torch.Tensor,
     res_keys, res_values, res_labels, res_positions = lib.live()
     valid = lib.valid_mask
     k_retrieve = 2 * cfg.retrieve_num if add_noise else cfg.retrieve_num
+    mesh = lib.mesh
+    if mesh is not None:
+        from ragraph_tpu_torch.parallel.sharded_index import (
+            merge_topk, sharded_cosine_topk, sharded_gather_rows)
+
+    def take(rows, idx):
+        if mesh is None:
+            return topk_gather(rows, idx)
+        return sharded_gather_rows(mesh, rows, idx, lib.axis_name)
 
     with torch.no_grad():
         q = search_keys.detach()
@@ -314,14 +356,29 @@ def retrieve(lib: ToyGraphLibrary, search_keys: torch.Tensor,
                 @ l2_normalize(res_positions).T
             scores = cfg.structure_weight * struct + cfg.semantic_weight * sem
             scores = torch.where(valid[None, :], scores, -torch.inf)
-            topk_idx = torch.topk(scores, k_retrieve, dim=1).indices
-        else:
+            if mesh is None:
+                topk_idx = torch.topk(scores, k_retrieve, dim=1).indices
+            else:
+                # each shard's top-k of its columns, then the global merge
+                rows_local = scores.shape[1]
+                s_loc, i_loc = torch.topk(scores, min(k_retrieve, rows_local),
+                                          dim=1)
+                i_loc = i_loc + mesh.get_local_rank(lib.axis_name) \
+                    * rows_local
+                _, topk_idx = merge_topk(mesh, s_loc, i_loc, k_retrieve,
+                                         lib.axis_name)
+        elif mesh is None:
             _, topk_idx = cosine_topk(q, res_keys, k_retrieve,
                                       valid_mask=valid,
                                       score_dtype=cfg.retrieve_dtype,
                                       rescore_pad=cfg.retrieve_rescore_pad)
-        rag_embeddings = topk_gather(res_values, topk_idx)
-        rag_labels = topk_gather(res_labels, topk_idx)
+        else:
+            _, topk_idx = sharded_cosine_topk(
+                mesh, q, res_keys, k_retrieve, valid_mask=valid,
+                axis_name=lib.axis_name, score_dtype=cfg.retrieve_dtype,
+                rescore_pad=cfg.retrieve_rescore_pad)
+        rag_embeddings = take(res_values, topk_idx)
+        rag_labels = take(res_labels, topk_idx)
 
         if add_noise:
             if cfg.noise_mode == "rows":
@@ -334,10 +391,9 @@ def retrieve(lib: ToyGraphLibrary, search_keys: torch.Tensor,
                     hi = torch.clamp_min(lib.fill, 1)
                     noise_idx = torch.minimum((u * hi).long(), hi.long() - 1)
                 rag_embeddings = torch.cat(
-                    [rag_embeddings, topk_gather(res_values, noise_idx)],
-                    dim=1)
+                    [rag_embeddings, take(res_values, noise_idx)], dim=1)
                 rag_labels = torch.cat(
-                    [rag_labels, topk_gather(res_labels, noise_idx)], dim=1)
+                    [rag_labels, take(res_labels, noise_idx)], dim=1)
             elif cfg.noise_mode == "gaussian":
                 if noise is None:
                     if generator is None:

@@ -1,6 +1,7 @@
 """Training, evaluation, checkpoints, logging and profiling of the port."""
 from ragraph_tpu_torch.train.checkpoint import (  # noqa: F401
-    BestCheckpointKeeper, restore_checkpoint, save_checkpoint)
+    BestCheckpointKeeper, restore_checkpoint, restore_sharded,
+    save_checkpoint)
 from ragraph_tpu_torch.train.logging import RunLogger, log_exceptions  # noqa: F401
 from ragraph_tpu_torch.train.metrics import RankingEvaluator  # noqa: F401
 from ragraph_tpu_torch.train.prefetch import PrefetchIterator, prefetch  # noqa: F401

@@ -59,7 +59,8 @@ def restore_checkpoint(path: str, template=None):
     """Load a tree saved by :func:`save_checkpoint`. Its leaves are numpy
     arrays, or with ``template`` (a tree of the same structure) tensors of
     the template's dtypes and devices: the one-device half of the JAX
-    package's ``restore_sharded``.
+    package's ``restore_sharded`` (:func:`restore_sharded` is the mesh
+    half).
 
     The JAX package's default format is an orbax directory. orbax imports
     JAX (and needs tensorstore), which the port does not depend on, so the
@@ -76,6 +77,41 @@ def restore_checkpoint(path: str, template=None):
     with open(pkl, "rb") as f:
         tree = pickle.load(f)
     return tree if template is None else _like(template, tree)
+
+
+def _slice_like(template, tree, mesh, axis_name):
+    if isinstance(template, dict):
+        return {k: _slice_like(template[k], v, mesh, axis_name)
+                if k in template else v for k, v in tree.items()}
+    if isinstance(template, (tuple, list)):
+        return type(tree)(_slice_like(t, v, mesh, axis_name)
+                          for t, v in zip(template, tree))
+    if isinstance(template, torch.Tensor):
+        from ragraph_tpu_torch.parallel.mesh import shard_rows
+        whole = torch.as_tensor(np.asarray(tree))
+        if template.dim() >= 1 and whole.dim() >= 1 \
+                and template.shape[0] != whole.shape[0]:
+            whole = shard_rows(mesh, whole, axis_name)
+        if whole.shape != template.shape:
+            raise ValueError(f"restore_sharded: saved shape "
+                             f"{tuple(whole.shape)} fits neither the "
+                             f"template's {tuple(template.shape)} nor its "
+                             f"block on '{axis_name}'")
+        return whole.to(device=template.device, dtype=template.dtype)
+    return tree
+
+
+def restore_sharded(path: str, template, mesh, axis_name: str = "idx"):
+    """Restore a checkpoint onto the template's layout on this rank.
+
+    The file holds whole arrays (rank 0 writes gathered tables). A template
+    leaf with fewer rows than its saved array is this rank's row block on
+    ``axis_name`` (an ``idx``-sharded table or library), and gets that
+    block; a leaf of the saved shape is replicated and gets the whole
+    array; both in the template's dtype and device. Other leaves pass
+    through. Every rank reads the file.
+    """
+    return _slice_like(template, restore_checkpoint(path), mesh, axis_name)
 
 
 class BestCheckpointKeeper:

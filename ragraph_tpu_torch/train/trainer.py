@@ -12,6 +12,17 @@ logged (:func:`.profiling.record_memory_analysis`). optax's ``adam``
 and torch's share their defaults (b1 0.9, b2 0.999, eps 1e-8 added outside
 the root), so the two trainers follow the same trajectory from the same
 batches and masks.
+
+With ``mesh`` (a ``DeviceMesh``, one process per rank): the embedding
+tables are placed row-sharded over ``idx`` (each rank holds its block, and
+so do their Adam moments), everything else replicated from rank 0; each
+rank trains on its ``dp`` share of every batch (the whole batch for models
+whose loss couples its rows, ``rows_independent``); gradients are summed as
+:mod:`ragraph_tpu_torch.parallel.dp` sets out. Every rank draws the same
+batches and masks from the same seeds, and evaluates the same gathered
+tables; rank 0 alone writes the checkpoint, which holds whole tables as a
+single-device run's does, and ``TrainResult.best_params`` holds them whole
+on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +35,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ragraph_tpu_torch.parallel import is_writer
+from ragraph_tpu_torch.parallel.collectives import all_gather
+from ragraph_tpu_torch.parallel.dp import (backward_global_mean, shard_batch,
+                                           sync_grads)
+from ragraph_tpu_torch.parallel.mesh import (axis_size, dp_extent,
+                                             replicate, shard_rows)
 from ragraph_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
@@ -52,6 +69,13 @@ def map_params(fn: Callable, params: dict) -> dict:
     return {k: one(v) for k, v in params.items()}
 
 
+def _map_named(fn: Callable, params: dict) -> dict:
+    """``fn(top-level name, tensor)`` on every tensor of a params dict, with
+    the shape of :func:`map_params`."""
+    return {k: map_params(lambda t, k=k: fn(k, t), {k: v})[k]
+            for k, v in params.items()}
+
+
 def param_leaves(params: dict) -> list:
     """``(name, tensor)`` for every tensor of a params dict, in key order:
     ``user_lora.0`` for a factor pair's entries, ``gru.w_ih`` for a nested
@@ -73,10 +97,7 @@ class EdgeTrainer:
 
     def __init__(self, model, dataset, cfg=None, logger: Callable = print,
                  evaluator: RankingEvaluator | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training is not ported yet (ROADMAP.md queue "
-                "1, item 10)")
+        self.mesh = mesh
         self.model = model
         self.dataset = dataset
         self.cfg = cfg or model.cfg
@@ -85,15 +106,51 @@ class EdgeTrainer:
             metrics=self.cfg.metrics, ks=self.cfg.metrics_k,
             eval_batch_size=self.cfg.eval_batch_size)
 
+    # -- multi-device placement -----------------------------------------------
+
+    def _is_table(self, name: str, t: torch.Tensor) -> bool:
+        """An ``idx``-sharded leaf: an embedding table on a mesh whose
+        ``idx`` axis is over 1 (the JAX trainer's placement rule)."""
+        return (axis_size(self.mesh, "idx") > 1 and "." not in name
+                and name.endswith("_embedding") and t.dim() == 2)
+
+    def _place(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's copy of a whole leaf: its row block of a table, else
+        rank 0's values."""
+        if self.mesh is None:
+            return t
+        if self._is_table(name, t):
+            self._rows[name] = t.shape[0]
+            return shard_rows(self.mesh, t)
+        return replicate(self.mesh, t)
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A placed leaf (or its Adam moment) made whole again."""
+        if self.mesh is None or name not in self._rows:
+            return t
+        return all_gather(t.detach(), self.mesh, "idx")[: self._rows[name]]
+
+    def whole_params(self, params: dict) -> dict:
+        """``params`` with every sharded table gathered whole (a collective:
+        every rank calls it); ``params`` itself off a mesh."""
+        if self.mesh is None:
+            return params
+        return _map_named(lambda n, t: self._whole(n, t).detach().clone(),
+                          params)
+
     # -- one step ------------------------------------------------------------
 
     def prepare(self, params: dict):
         """Leaf copies of ``params`` with ``requires_grad`` and their Adam.
         Frozen LoRA factors (``lora_train_factors=False``) stay out of the
-        optimizer and need no gradient."""
+        optimizer and need no gradient. On a mesh the copies are placed
+        (tables row-sharded over ``idx``, the rest replicated)."""
         frozen = () if self.cfg.lora_train_factors else ("user_lora",
                                                          "item_lora")
+        self._rows = {}
         params = map_params(lambda t: t.detach().clone(), params)
+        if self.mesh is not None:
+            params = _map_named(self._place, params)
         trainable = []
         for name, t in param_leaves(params):
             if name.split(".")[0] not in frozen:
@@ -115,10 +172,21 @@ class EdgeTrainer:
         detached device scalars."""
         graph, resources = self._graph_and_resources()
         optimizer.zero_grad(set_to_none=True)
+        if self.mesh is not None and self.model.rows_independent:
+            batch = shard_batch(self.mesh, batch)
         loss, aux = self.model.cal_loss(params, batch, generator,
                                         graph=graph, resources=resources,
                                         edge_masks=edge_masks)
-        loss.backward()
+        if self.mesh is None:
+            loss.backward()
+        else:
+            # this rank's share of the global mean, then the gradient sums
+            loss = backward_global_mean(self.mesh, loss)
+            leaves = [(n, t) for n, t in param_leaves(params)
+                      if t.requires_grad]
+            sync_grads(self.mesh,
+                       [t for n, t in leaves if not self._is_table(n, t)],
+                       [t for n, t in leaves if self._is_table(n, t)])
         optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
@@ -149,6 +217,10 @@ class EdgeTrainer:
         cfg = self.cfg
         rng = rng or np.random.default_rng(0)
         num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
+        if self.mesh is not None and cfg.batch_size % dp_extent(self.mesh):
+            raise ValueError(f"batch_size {cfg.batch_size} must divide by "
+                             f"the data-parallel extent "
+                             f"{dp_extent(self.mesh)}")
         params, optimizer = self.prepare(params)
 
         best = {"recall": np.zeros(len(cfg.metrics_k)),
@@ -168,8 +240,9 @@ class EdgeTrainer:
                              snap["opt_state"])
             generator.set_state(torch.from_numpy(snap["generator_state"]))
             best = snap["best"]
-            best_params = map_params(
-                lambda a: torch.from_numpy(np.array(a)).to(dev),
+            best_params = _map_named(
+                lambda n, a: self._place(
+                    n, torch.from_numpy(np.array(a)).to(dev)),
                 snap["best_params"])
             start_epoch = int(snap["epoch"]) + 1
             stop_counter = int(snap["stop_counter"])
@@ -226,43 +299,51 @@ class EdgeTrainer:
                     break
 
             if resume_path and (epoch + 1) % checkpoint_every == 0:
-                save_checkpoint(resume_path, {
-                    "params": params,
-                    "opt_state": self._opt_state(params, optimizer),
-                    "generator_state": generator.get_state(),
-                    "best": best, "best_params": best_params,
-                    "epoch": epoch, "stop_counter": stop_counter})
+                # gathered on every rank, written by rank 0
+                snap = {"params": self.whole_params(params),
+                        "opt_state": self._opt_state(params, optimizer),
+                        "generator_state": generator.get_state(),
+                        "best": best,
+                        "best_params": self.whole_params(best_params),
+                        "epoch": epoch, "stop_counter": stop_counter}
+                if is_writer():
+                    save_checkpoint(resume_path, snap)
 
-        return TrainResult(best_perform=best, best_params=best_params,
+        return TrainResult(best_perform=best,
+                           best_params=self.whole_params(best_params),
                            epochs_run=epochs_run, history=history)
 
-    @staticmethod
-    def _opt_state(params: dict, optimizer) -> dict:
-        """Adam's step count and moments by parameter name."""
+    def _opt_state(self, params: dict, optimizer) -> dict:
+        """Adam's step count and moments by parameter name, whole."""
         out = {}
         for name, t in param_leaves(params):
             st = optimizer.state.get(t)
             if st:
+                top = name.split(".")[0]
                 out[name] = {"step": float(st["step"]),
-                             "exp_avg": st["exp_avg"],
-                             "exp_avg_sq": st["exp_avg_sq"]}
+                             "exp_avg": self._whole(top, st["exp_avg"]),
+                             "exp_avg_sq": self._whole(top,
+                                                       st["exp_avg_sq"])}
         return out
 
-    @staticmethod
-    def _load_state(params: dict, optimizer, saved_params: dict,
+    def _load_state(self, params: dict, optimizer, saved_params: dict,
                     saved_opt: dict) -> None:
+        """Whole saved leaves and moments, each placed as its parameter."""
         saved = dict(param_leaves(saved_params))
+
+        def placed(name, a, t):
+            return self._place(name.split(".")[0], torch.from_numpy(
+                np.array(a)).to(device=t.device, dtype=t.dtype))
+
         with torch.no_grad():
             for name, t in param_leaves(params):
-                t.copy_(torch.from_numpy(np.array(saved[name])))
+                t.copy_(placed(name, saved[name], t))
                 if name in saved_opt:
                     st = saved_opt[name]
                     optimizer.state[t] = {
                         "step": torch.tensor(float(st["step"])),
-                        "exp_avg": torch.from_numpy(
-                            np.array(st["exp_avg"])).to(t.device),
-                        "exp_avg_sq": torch.from_numpy(
-                            np.array(st["exp_avg_sq"])).to(t.device)}
+                        "exp_avg": placed(name, st["exp_avg"], t),
+                        "exp_avg_sq": placed(name, st["exp_avg_sq"], t)}
 
     def evaluate_grouped(self, params):
         """Recall and ndcg apart for tuned users (in the train split) and

@@ -46,8 +46,11 @@ def test_vanilla_cli_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("mode", ["pretrain", "finetune"])
 def test_unported_cli_modes_exit_nonzero(mode, tmp_path):
-    """Both modes run, with the model zoo's ``--model`` values too; what
-    still exits non-zero with a pointer to ROADMAP.md is ``--mesh``."""
+    """Both modes run, with the model zoo's ``--model`` values too. Every
+    mode is ported now, ``--mesh`` included; what exits non-zero is a
+    malformed ``--mesh``, and one whose ``dp * idx`` is not the world size
+    (a process outside ``torch.distributed.run`` is a world of one),
+    before the process joins any group."""
     args = [mode, "--save-dir", str(tmp_path), "--device", "cpu",
             "--epochs", "1", "--batch-size", "128", "--emb-size", "8"]
     t_edge_cli.main(args)
@@ -55,10 +58,13 @@ def test_unported_cli_modes_exit_nonzero(mode, tmp_path):
     t_edge_cli.main(args + ["--model", "SGL"])
     assert (tmp_path / f"{mode}_SGL_SYNTH.json").exists()
     with pytest.raises(SystemExit) as exc:
-        t_edge_cli.main(args + ["--mesh", "dp=1,idx=1"])
+        t_edge_cli.main(args + ["--mesh", "dp=1;idx=1"])
     assert exc.value.code not in (0, None)
-    assert "not yet ported" in str(exc.value.code)
-    assert "ROADMAP" in str(exc.value.code)
+    assert "--mesh expects dp=D,idx=I" in str(exc.value.code)
+    with pytest.raises(ValueError, match=r"dp\*idx = 2\*1 != 1 ranks"):
+        t_edge_cli.main(args + ["--mesh", "dp=2,idx=1"])
+    import torch.distributed as dist
+    assert not dist.is_initialized()
 
 
 def test_checkpoint_interop(tmp_path):

@@ -418,8 +418,21 @@ def test_trainer_best_snapshot_early_stop_and_resume(data, monkeypatch,
     assert first.epochs_run == 2 and resumed.epochs_run == 4
     assert [h["epoch"] for h in resumed.history] == [2, 3]
     assert resumed.history[-1]["loss"] < first.history[0]["loss"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeTrainer(tm, tds, mesh=object())
+    # on a mesh the batch must split over dp, checked before any
+    # collective (the surface of a DeviceMesh the check reads)
+    class DpMesh:
+        mesh_dim_names = ("dp", "idx")
+
+        def size(self, i):
+            return (7, 1)[i]
+
+        def get_local_rank(self, name):
+            return 0
+
+    with pytest.raises(ValueError, match="batch_size 96 must divide by "
+                                         "the data-parallel extent 7"):
+        EdgeTrainer(tm, tds, mesh=DpMesh()).train(
+            tparams, torch.Generator().manual_seed(3), num_epochs=1)
     grouped = EdgeTrainer(tm, tds, logger=lambda *_: None).evaluate_grouped(
         resumed.best_params)
     assert set(grouped) == {"tuned", "untuned"}

@@ -35,13 +35,20 @@ def test_parser_matches_jax_flag_for_flag():
     j, t = _actions(j_fewshot.build_parser()), \
         _actions(t_fewshot.build_parser())
     assert t.pop("device")[:2] == (("--device",), "cuda")
+    assert t.pop("dist_backend")[:3] == (("--dist-backend",), None,
+                                         ["nccl", "gloo"])
     assert t == j
 
 
 def test_mesh_and_missing_card():
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1, item 10"):
-        t_fewshot.main(["finetune", "--mesh", "dp=1,idx=1", "--device",
+    """``--mesh`` must name a world of ``dp * idx`` ranks; a process outside
+    ``torch.distributed.run`` is a world of one, refused before it joins
+    any group."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match=r"dp\*idx = 2\*1 != 1 ranks"):
+        t_fewshot.main(["finetune", "--mesh", "dp=2,idx=1", "--device",
                         "cpu"])
+    assert not dist.is_initialized()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_fewshot.main(["finetune"])

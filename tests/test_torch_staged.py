@@ -24,7 +24,7 @@ from ragraph_tpu_torch.data.edgelist import load_edge_dataset
 from ragraph_tpu_torch.data.synthetic import synthetic_edge_stream
 from ragraph_tpu_torch.models.edge import (EdgeGraphArrays, EdgeModelConfig,
                                            GraphPro, RAGraphEdge, Roland,
-                                           staged)
+                                           SGLPlugin, staged)
 from ragraph_tpu_torch.train.checkpoint import (BestCheckpointKeeper,
                                                 restore_checkpoint)
 
@@ -142,6 +142,17 @@ def test_staged_seed_and_early_stop(setup):
     assert len(set(gens)) == 4
 
 
+class IdxMesh:
+    """The surface of a ``dp=1,idx=2`` DeviceMesh that the model reads."""
+    mesh_dim_names = ("dp", "idx")
+
+    def size(self, i):
+        return (1, 2)[i]
+
+    def get_local_rank(self, name):
+        return 0
+
+
 def test_staged_guards(setup):
     train, stages, tables = setup
     short = {k: v[:-1] for k, v in tables.items()}
@@ -151,12 +162,14 @@ def test_staged_guards(setup):
     late[2] = late[2] + [(48, 0, late[2][0][2])]
     with pytest.raises(ValueError, match="beyond the base id range"):
         _run((train, late, tables))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # tables shard over idx only in the base models; the refusal comes
+    # before any collective (the surface of a DeviceMesh it reads)
+    with pytest.raises(ValueError, match="tables shard over idx only"):
         staged.staged_dynamic(train, stages[0], stages, tables,
                               lambda phase: _cfg(), 2, Roland,
-                              device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run(setup, mesh=object())
+                              device="cpu", mesh=IdxMesh())
+    with pytest.raises(ValueError, match="tables shard over idx only"):
+        _run(setup, mesh=IdxMesh(), model_cls=SGLPlugin)
     assert RAGraphEdge.use_rag and not GraphPro.use_rag
 
 

@@ -183,8 +183,19 @@ def test_staged_dynamic_guards(setup):
         tedge.staged_dynamic(train, stages[0], list(stages), short,
                              lambda phase: _cfg(tedge), 1, tedge.Roland,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port(setup, tedge.Roland, "roland", mesh=object())
+    class IdxMesh:      # the surface of a dp=1,idx=2 DeviceMesh read here
+        mesh_dim_names = ("dp", "idx")
+
+        def size(self, i):
+            return (1, 2)[i]
+
+        def get_local_rank(self, name):
+            return 0
+
+    # the dynamic models' tables do not shard over idx (the JAX CLI refuses
+    # them too); the refusal comes before any collective
+    with pytest.raises(ValueError, match="tables shard over idx only"):
+        _port(setup, tedge.Roland, "roland", mesh=IdxMesh())
 
 
 # -- the CLI ----------------------------------------------------------------
