@@ -136,11 +136,28 @@ Phases (any failure exits non-zero):
    device's, the count exact, the mean to 1e-5; (d) the node CLI's library
    (65,536 rows, hidden 256) built sharded, equal to one device's build,
    ``retrieve`` through kernel C on each shard equal; (e) ``cli.edge
-   pretrain`` and ``finetune`` with ``--mesh dp=1,idx=2 --dist-backend
-   gloo`` in two ranks, writing the JAX CLI's files and a run log, and a
-   world of one rank on NCCL (``--mesh dp=1,idx=1``) giving the
-   single-device result. The launches of (a-d) join the kernels line,
-   summed over the ranks.
+   finetune`` (which pretrains first) with ``--mesh dp=1,idx=2
+   --dist-backend gloo`` in two ranks, one launch writing the JAX CLI's
+   files and a run log, and a world of one rank on NCCL (``--mesh
+   dp=1,idx=1``) giving the single-device result. The launches of (a-d)
+   join the kernels line, summed over the ranks.
+15. every width and every k (the counterparts take every shape the JAX
+   functions take): (a) after phase 11, ``cli.node finetune --hidden 512``
+   on phase 9's files (kernel C on 512-wide rows in chunks of 128 columns,
+   once per ``retrieve``, held to its plain version; accuracy above 0.5);
+   (b) after phase 14, phase 6's path at ``emb_size`` 100: pretrain steps
+   (kernel A 6 launches a step), finetune steps at ``retrieve_num`` 10
+   (C 128 a step, rows padded to 104 columns) and at 1,000 (the selection
+   family: the score matrix and ``select_topk``, 128 each a step), the
+   first batch's loss lower after the steps; (c) kernel C and D-G at
+   widths 4, 12, 100, 264, 512, 1,000 and k of 129, 256, 1,000, 4,096
+   (ragged Q and R, fewer valid rows than k, k > R; D against F and the
+   score matrix's bucket maxima against D bit for bit; E and G past 128
+   and at k = 20,000 bit for bit their plain versions), the refresh chunk
+   at E = 100 and k = 10 and 1,000, and A, B, I at widths 1, 3, 65, 514,
+   640, 1,024 on phase 2's graph and phase 2b's skewed graph; (d) the new
+   shapes' device times beside their one-call yardsticks and bounds, and
+   the selection family's two kernels in the kernels line.
 
 It prints per-stage milliseconds, a ``{"kernels": [...]}`` line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. It imports
@@ -761,13 +778,16 @@ def dense_topk(q, keys, k, valid=None):
     slots."""
     import torch
 
-    from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
-    scores = _fma_chain(q.to(torch.bfloat16)[:, None, :],
+    from ragraph_tpu_torch.ops.score_tile import fma_chain
+    scores = fma_chain(q.to(torch.bfloat16)[:, None, :],
                         keys.to(torch.bfloat16)[None, :, :])
     if valid is not None:
         scores = torch.where(valid[None, :], scores, -torch.inf)
     s, i = torch.sort(scores, dim=1, descending=True, stable=True)
     s, i = s[:, :k], i[:, :k]
+    if s.shape[1] < k:      # fewer rows than k
+        s = torch.nn.functional.pad(s, (0, k - s.shape[1]), value=-torch.inf)
+        i = torch.nn.functional.pad(i, (0, k - i.shape[1]), value=0)
     return s, torch.where(torch.isinf(s), 0, i).to(torch.int32)
 
 
@@ -780,9 +800,9 @@ def check_bucket_family(name, q, keys, k, valid=None, p_max=P_MAX):
     carries kernel F's bits, which are D's."""
     import torch
 
-    from ragraph_tpu_torch.ops.bucket_topk import (LANE, _fma_chain,
-                                                   bucket_max,
+    from ragraph_tpu_torch.ops.bucket_topk import (LANE, bucket_max,
                                                    bucketed_exact_topk)
+    from ragraph_tpu_torch.ops.score_tile import fma_chain
     s, i = bucketed_exact_topk(q, keys, k, valid_mask=valid, p_max=p_max)
     torch.cuda.synchronize()
     ps, pi = dense_topk(q, keys, k, valid)
@@ -794,7 +814,7 @@ def check_bucket_family(name, q, keys, k, valid=None, p_max=P_MAX):
     tie_err = 0.0
     if diff.any():
         rows = diff.nonzero()[:, 0]
-        picked = _fma_chain(q.to(torch.bfloat16)[rows],
+        picked = fma_chain(q.to(torch.bfloat16)[rows],
                             keys.to(torch.bfloat16)[i[diff].long()])
         tie_err = float((picked - ps[diff]).abs().max())
         bad |= tie_err > TOL_SCORE
@@ -997,15 +1017,15 @@ def bucket_kernel_checks(gen, dev, q_path, keys_path):
             f"same_queries={same} p_max={p_max}", q, keys, k,
             mask(n_r, spec), p_max)
     for fn, x, what in ((bt.column_topk, torch.zeros(4, 4, device=dev),
-                         f"k = {bt.MAX_K + 1}"),
+                         "k = 0"),
                         (bt.row_topk, torch.zeros(4, 4, device=dev),
-                         f"k = {bt.MAX_K + 1}"),
+                         "k = 0"),
                         (bt.column_topk, torch.zeros(0, 4, device=dev),
                          "no rows"),
                         (bt.row_topk, torch.zeros(4, 0, device=dev),
                          "no columns")):
         try:
-            fn(x, bt.MAX_K + 1 if what.startswith("k") else 1)
+            fn(x, 0 if what.startswith("k") else 1)
         except ValueError:
             continue
         fail(f"{fn.__name__} took {what}")
@@ -1419,7 +1439,7 @@ def phase_exact_tier(dev, params, keys):
 
     from ragraph_tpu_torch import native
     from ragraph_tpu_torch.ops import bucket_topk as bt
-    from ragraph_tpu_torch.ops.bucket_topk import _fma_chain
+    from ragraph_tpu_torch.ops.score_tile import fma_chain
     from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
     from ragraph_tpu_torch.ops.similarity import l2_normalize
     from ragraph_tpu_torch.ops.topk import cosine_topk
@@ -1481,7 +1501,7 @@ def phase_exact_tier(dev, params, keys):
     tie_err = 0.0
     if diff.any():      # another index only where the score is (all but) the
         rows = diff.nonzero()[:, 0]     # same: the tier's pick by its order
-        picked = _fma_chain(q_n.to(torch.bfloat16)[rows],
+        picked = fma_chain(q_n.to(torch.bfloat16)[rows],
                             keys_n.to(torch.bfloat16)[i[diff].long()])
         tie_err = float((picked - cs[diff]).abs().max())
         bad |= tie_err > TOL_SCORE
@@ -2102,14 +2122,16 @@ class TimedObserver:
                 hook(**o)
 
 
-def phase_node_path(dev, tu_root):
+def phase_node_path(dev, tu_root, hidden=NODE_HIDDEN,
+                    modes=("vanilla", "finetune"), label="phase 9"):
     """The static node pipeline at full width: hidden 256, batch 16, a
     65,536-row library that the train split fills to 60,000 rows and the val
     append runs into the clamp. ``cli.node vanilla`` and ``finetune`` run on
     the dataset read from the TU text files under ``tu_root``, each with an
     observer that times the CLI's own stages and, between them, holds
     kernel C to its plain version on the run's queries and store. Returns
-    kernel C's largest error at these shapes."""
+    kernel C's largest error at these shapes. Phase 15a runs ``finetune``
+    alone at ``hidden`` 512 (kernel C's tile in chunks of 128 columns)."""
     import copy
 
     import torch
@@ -2121,7 +2143,7 @@ def phase_node_path(dev, tu_root):
     from ragraph_tpu_torch.models.ragraph_node import RAGraphNodeState
     from ragraph_tpu_torch.ops.similarity import l2_normalize
     from ragraph_tpu_torch.rag.library import retrieve
-    print(f"phase 9: node path, {NODE_GRAPHS} graphs, hidden {NODE_HIDDEN}, "
+    print(f"{label}: node path, {NODE_GRAPHS} graphs, hidden {hidden}, "
           f"batch {NODE_BATCH}, library capacity {NODE_CAPACITY}", flush=True)
     ds, (n_train, n_val, n_test) = node_dataset()
     val_batches, test_batches = -(-n_val // NODE_BATCH), \
@@ -2173,7 +2195,7 @@ def phase_node_path(dev, tu_root):
             if n_c != 1:
                 fail(f"retrieve launched kernel C {n_c} times, not once")
             k = libcfg.retrieve_num
-            if tuple(rag_emb.shape) != (pad, k, NODE_HIDDEN) \
+            if tuple(rag_emb.shape) != (pad, k, hidden) \
                     or tuple(rag_labels.shape) != (pad, k, 3) \
                     or not bool(torch.isfinite(rag_emb).all()):
                 fail(f"retrieve returned {tuple(rag_emb.shape)} and "
@@ -2229,16 +2251,16 @@ def phase_node_path(dev, tu_root):
                                  val, pad)
 
     out, c_err = {}, 0.0
-    tmp = f"{tu_root}/node"
+    tmp = f"{tu_root}/node{hidden}"
     common = ["--dataset", ds.name, "--data-root", tu_root, "--save-dir",
               f"{tmp}/modelset", "--results-dir", f"{tmp}/results",
-              "--hidden", str(NODE_HIDDEN), "--batch-size",
+              "--hidden", str(hidden), "--batch-size",
               str(NODE_BATCH), "--library-capacity", str(NODE_CAPACITY),
               "--test-times", "1", "--device", str(dev)]
-    for mode, extra, want_c in (
-            ("vanilla", [], test_batches),
-            ("finetune", ["--epochs", "2"],
-             2 * val_batches + test_batches)):
+    runs = {"vanilla": ([], test_batches),
+            "finetune": (["--epochs", "2"], 2 * val_batches + test_batches)}
+    for mode in modes:
+        extra, want_c = runs[mode]
         probe = Probe(mode)
         native.reset_launches()
         t0 = time.perf_counter()
@@ -2275,10 +2297,12 @@ def phase_node_path(dev, tu_root):
             or not losses[-1] < losses[0]:
         fail(f"node finetune: losses {losses} are not finite and falling")
     if "finetune_step_ms" not in out["finetune"] \
-            or out["vanilla"]["finetune_losses"]:
+            or out.get("vanilla", {}).get("finetune_losses"):
         fail("cli.node: the finetune stages ran in the wrong mode")
-    mesh_refusal("cli.node", cli.main, ["vanilla"] + common)
-    print(json.dumps({"node_path": out}), flush=True)
+    if "vanilla" in modes:
+        mesh_refusal("cli.node", cli.main, ["vanilla"] + common)
+    print(json.dumps({"node_path" if hidden == NODE_HIDDEN
+                      else f"node_path_hidden_{hidden}": out}), flush=True)
     return c_err
 
 
@@ -4043,22 +4067,21 @@ def phase_multi_device(dev, small=False):
                   flush=True)
             md_summary(world, ranks, total, on_card)
 
-        # (e) the CLI: two ranks on this card over gloo, then a world of one
-        # on NCCL against the single-device run
+        # (e) the CLI: two ranks on this card over gloo (one launch of
+        # finetune, which pretrains first), then a world of one on NCCL
+        # against the single-device run
         t0 = time.perf_counter()
         gloo = os.path.join(tmp, "gloo")
         mesh = ["--save-dir", gloo, "--mesh", "dp=1,idx=2", "--dist-backend",
                 "gloo", *where]
-        torchrun(2, ["-m", "ragraph_tpu_torch.cli.edge", "pretrain",
-                     *MD_CLI, *mesh])
         torchrun(2, ["-m", "ragraph_tpu_torch.cli.edge", "finetune",
                      *MD_CLI, *mesh])
         files, logs = cli_files(gloo)
         want = ["finetune_RAGraph_SYNTH.json", "pretrain_RAGraph_SYNTH.json",
                 "pretrain_RAGraph_SYNTH.pkl"]
-        if files != want or len(logs) != 2:
+        if files != want or len(logs) != 1:
             fail(f"14e: the mesh CLI wrote {files} and run logs {logs}, "
-                 f"expected {want} and one log per mode")
+                 f"expected {want} and the launch's one log")
         with open(os.path.join(gloo, "finetune_RAGraph_SYNTH.json")) as f:
             got = json.load(f)
         if len(got["recalls"]) != 4 or not np.isfinite(got["recalls"]).all():
@@ -4082,6 +4105,500 @@ def phase_multi_device(dev, small=False):
               f"{err:.2e}; {time.perf_counter() - t0:.1f} s", flush=True)
     return total
 
+
+# ---- phase 15: every width and every k ------------------------------------
+
+WIDE_E = (4, 12, 100, 264, 512, 1000)   # widths of C and D-G
+WIDE_K = (129, 256, 1000, 4096)         # k of the selection family
+WIDE_D = (1, 3, 65, 514, 640, 1024)     # row widths of A, B and I
+WIDE_NODE_HIDDEN = 512                  # phase 15a's --hidden
+WIDE_EMB = 100                          # phase 15b's emb_size
+WIDE_PATH_K = 1000                      # phase 15b's large retrieve_num
+WIDE_STEPS = 6                          # phase 15b's steps of each phase
+
+
+def wide_topk_checks(gen, dev):
+    """Phase 15c, retrieval: at every width of WIDE_E, kernel C on its own
+    lists and on the selection family (every k of WIDE_K), with ragged Q
+    and R, a valid mask with fewer valid rows than k, and k > R; D and F
+    against their plain versions and D against F bit for bit; the bucket
+    family at every k of WIDE_K through D-G (R >= 128 k). E and G (the
+    selection family beyond 128) bit for bit their plain versions at every
+    k of WIDE_K on tied and exhausted inputs, and at k = 20,000 (the sort
+    in global memory). Then the main path's refresh chunk (2,048 x
+    262,144) at E = 100: C at k = 10 and 1,000, the bucket family at both.
+    Returns the largest errors."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    from ragraph_tpu_torch.ops import score_tile as st
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    errs = {"C": 0.0, "D": 0.0, "F": 0.0, "E": 0.0, "G": 0.0, "score": 0.0,
+            "select": 0.0}
+
+    def unit(n, e):
+        return l2_normalize(torch.randn(n, e, generator=gen, device=dev))
+
+    def some_valid(n, n_valid):
+        valid = torch.zeros(n, dtype=torch.bool, device=dev)
+        valid[torch.randperm(n, generator=gen, device=dev)[:n_valid]] = True
+        return valid
+
+    tol = (0.0, TOL_SCORE)
+    for e in WIDE_E:
+        q, keys = unit(37, e), unit(5003, e)
+        for k in (10, 128) + WIDE_K:
+            errs["C"] = max(errs["C"], check_topk(
+                f"C Q=37 R=5003 E={e} k={k}", q, keys, k))
+        valid = some_valid(5003, 100)
+        for k in (50, 129, 1000):
+            check_topk(f"C Q=37 R=5003 E={e} k={k} valid=100", q, keys, k,
+                       valid)
+        check_topk(f"C Q=5 R=300 E={e} k=1000 (k > R)", q[:5], keys[:300],
+                   1000)
+        qh, kh = unit(70, e).bfloat16(), unit(1000, e).bfloat16()
+        v = some_valid(1000, 600)
+        tag = f"Q=70 R=1000 E={e} valid=600"
+        errs["D"] = max(errs["D"], check_close(
+            f"D {tag}", bt.bucket_max(kh, qh, v),
+            bt.bucket_max_plain(kh, qh, v), tol))
+        assign = torch.randint(-1, 74, (8, 70), generator=gen, device=dev,
+                               dtype=torch.int32)
+        errs["F"] = max(errs["F"], check_close(
+            f"F {tag} P=70", bt.bucket_rescore(assign, qh, kh, v),
+            bt.bucket_rescore_plain(assign, qh, kh, v), tol))
+        d_equals_f(tag, kh, qh, v, torch.arange(70, device=dev))
+        # the score matrix: its plain version, and D's maxima bit for bit
+        sm = st.score_matrix(kh, qh, v)
+        errs["score"] = max(errs["score"], check_close(
+            f"score_matrix {tag}", sm, st.score_matrix_plain(kh, qh, v), tol))
+        check_same(f"score_matrix bucket maxima against D {tag}",
+                   sm.view(70, -1, LANE_KEYS).amax(2).T.contiguous(),
+                   bt.bucket_max(kh, qh, v))
+        for k, n_q in zip(WIDE_K, (19, 11, 5, 3)):
+            n_r = LANE_KEYS * k + 37
+            check_bucket_family(
+                f"D-G Q={n_q} R={n_r} E={e} k={k}", unit(n_q, e),
+                unit(n_r, e), k, some_valid(n_r, n_r - 1000))
+        check_bucket_family(f"D-G Q=4 R=2000 E={e} k=1000 valid=600 "
+                            f"(dense branch)", unit(4, e), unit(2000, e),
+                            1000, some_valid(2000, 600))
+        check_bucket_family(f"D-G Q=5 R=300 E={e} k=1000 (k > R)",
+                            unit(5, e), unit(300, e), 1000)
+
+    def same(tag, fn, plain, x, ks):
+        worst = 0.0
+        for k in ks:
+            for got, ref, what in zip(fn(x, k), plain(x, k), "vi"):
+                err = check_same(f"{tag} k={k} {what}", got, ref)
+                worst = max(worst, err if what == "v" else 0.0)
+        return worst
+
+    grid = torch.round(torch.randn(5000, 37, generator=gen, device=dev) * 2)
+    grid[:, 0] = bt.NEG_INF                 # a column with nothing in it
+    grid[2500:, -1] = bt.NEG_INF            # one exhausted halfway
+    grid[:, 1] = 0.5                        # a column of equal values
+    errs["E"] = same("E R=5000 Q=37 grid", bt.column_topk,
+                     bt.column_topk_plain, grid, WIDE_K)
+    same("E R=300 Q=9 (k > R)", bt.column_topk, bt.column_topk_plain,
+         grid[:300, :9].contiguous(), (1000,))
+    rows = torch.round(torch.randn(9, 50000, generator=gen, device=dev) * 2)
+    rows[0] = bt.NEG_INF
+    rows[-1, 25000:] = bt.NEG_INF
+    rows[1] = 0.5
+    errs["G"] = same("G Q=9 W=50000 grid", bt.row_topk, bt.row_topk_plain,
+                     rows, WIDE_K)
+    errs["select"] = max(errs["E"], errs["G"])
+    same("G Q=3 W=30000 (the sort in global memory)", bt.row_topk,
+         bt.row_topk_plain,
+         torch.randn(3, 30000, generator=gen, device=dev), (20000,))
+    del grid, rows
+
+    # the main path's refresh chunk at phase 15b's width
+    q, keys = unit(CHUNK, WIDE_EMB), unit(U + I, WIDE_EMB)
+    for k in (K_PATH, WIDE_PATH_K):
+        errs["C"] = max(errs["C"], check_topk(
+            f"C Q={CHUNK} R={U + I} E={WIDE_EMB} k={k}", q, keys, k))
+        torch.cuda.empty_cache()
+        check_bucket_family(f"D-G Q={CHUNK} R={U + I} E={WIDE_EMB} k={k}", q,
+                            keys, k)
+        torch.cuda.empty_cache()
+    qh, kh = q.bfloat16(), keys.bfloat16()
+    tag = f"Q={CHUNK} R={U + I} E={WIDE_EMB}"
+    d_equals_f(tag, kh, qh, None, torch.arange(64, device=dev))
+    sm = st.score_matrix(kh, qh)
+    check_same(f"score_matrix bucket maxima against D {tag}",
+               sm.view(CHUNK, -1, LANE_KEYS).amax(2).T.contiguous(),
+               bt.bucket_max(kh, qh))
+    from ragraph_tpu_torch.ops import select_topk as sl
+    for got, ref, what in zip(sl.select_topk(sm, WIDE_PATH_K, U + I),
+                              sl.select_topk_plain(sm[:, :U + I],
+                                                   WIDE_PATH_K), "vi"):
+        err = check_same(f"select_topk {tag} k={WIDE_PATH_K} {what}", got,
+                         ref)
+        errs["select"] = max(errs["select"], err if what == "v" else 0.0)
+    del sm
+    torch.cuda.empty_cache()
+    return errs
+
+
+LANE_KEYS = 128   # keys a bucket: the bucket family runs D-G for R >= 128 k
+
+
+def f64_rows_sum(terms_fn, indptr, n_rows, d, block=128):
+    """``out[r] = sum of terms_fn(c0, c1)[e]`` over the edges of row ``r``,
+    in float64, in column blocks (the terms of 2^21 edges at 1,024 columns
+    are 17 GB in float64)."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    seg = cs._segment_ids(indptr, int(indptr[-1]))
+    out = torch.zeros(n_rows, d, dtype=torch.float64, device=indptr.device)
+    for c0 in range(0, d, block):
+        c1 = min(d, c0 + block)
+        out[:, c0:c1].index_add_(0, seg, terms_fn(c0, c1).double())
+    return out
+
+
+def wide_segsum_checks(dev, graph, skewed):
+    """Phase 15c, propagation: kernels A (bf16 and f32), B and I (bf16
+    switch) at every width of WIDE_D, on phase 2's graph against their
+    plain versions and on phase 2b's skewed graph (degree exponent 0.8, hub
+    rows of about 37,000 edges) against their terms summed in float64, at
+    TOL_SEGSUM. Returns the largest errors, the skewed graph's apart."""
+    import torch
+
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    gen = torch.Generator(dev).manual_seed(SEED + 50)
+    errs = dict.fromkeys(("A", "B", "I", "A_skewed", "B_skewed",
+                          "I_skewed"), 0.0)
+    g = graph
+    graphs = (
+        ("main", g.senders, g.recv_indptr, g.edge_norm * 0.5
+         + g.time_norm * 0.5, g.num_nodes, (g.recv_plan, g.send_plan),
+         (g.edge_norm_send * 0.5 + g.time_norm_send * 0.5, g.recv_of_send,
+          g.send_indptr)),
+        ("skewed", skewed["senders"], skewed["recv_indptr"], skewed["w"],
+         len(skewed["recv_indptr"]) - 1,
+         (cs.walk_plan(skewed["recv_indptr"]),
+          cs.walk_plan(skewed["send_indptr"])),
+         (skewed["w_send"], skewed["recv_of_send"], skewed["send_indptr"])))
+    for tag, send, ip, w, n, plans, bwd in graphs:
+        n_e = len(send)
+        sfx = "" if tag == "main" else "_skewed"
+        for d in WIDE_D:
+            table = torch.randn(n, d, generator=gen, device=dev)
+            name = f"{tag} graph D={d}"
+            for bf16 in (True, False):
+                got = cs.gather_scale_segsum(table, w, *bwd[:1], send, ip,
+                                             *bwd[1:], bf16=bf16,
+                                             recv_plan=plans[0],
+                                             send_plan=plans[1])
+                if tag == "main":
+                    ref = cs.gather_scale_segsum_plain(table, w, send, ip,
+                                                       bf16)
+                else:
+                    t = table.to(torch.bfloat16).float() if bf16 else table
+                    ww = w.to(torch.bfloat16).float() if bf16 else w
+                    ref = f64_rows_sum(
+                        lambda c0, c1: t[send.long(), c0:c1] * ww[:, None],
+                        ip, n, d).float()
+                errs["A" + sfx] = max(errs["A" + sfx], check_close(
+                    f"A bf16={bf16} {name}", got, ref, TOL_SEGSUM))
+                del got, ref
+            msgs = table[send.long()] * w[:, None]
+            got = cs.csr_segment_sum(msgs, ip)
+            ref = cs.segment_sum_plain(msgs, ip) if tag == "main" else \
+                f64_rows_sum(lambda c0, c1: msgs[:, c0:c1], ip, n, d).float()
+            errs["B" + sfx] = max(errs["B" + sfx], check_close(
+                f"B {name}", got, ref, TOL_SEGSUM))
+            del msgs, got, ref
+            msgs2 = pack_half_split(table[send.long()], 512)
+            got = cs.segsum_packed2_w(msgs2, w, ip, n_e, bf16=True)
+            if tag == "main":
+                ref = cs.segsum_packed2_w_plain(msgs2, w, ip, n_e, 512, True)
+            else:
+                tb = table.to(torch.bfloat16).float()
+                wb = w.to(torch.bfloat16).float()
+                ref = f64_rows_sum(
+                    lambda c0, c1: tb[send.long(), c0:c1] * wb[:, None],
+                    ip, n, d).float()
+            errs["I" + sfx] = max(errs["I" + sfx], check_close(
+                f"I bf16=True {name}", got, ref, TOL_SEGSUM))
+            del msgs2, got, ref, table
+            torch.cuda.empty_cache()
+    return errs
+
+
+def wide_steps(name, trainer, params, batches, gen, want, grad_names):
+    """``len(batches)`` steps of ``trainer`` from ``params``, then one more
+    on the first batch, each with its launches counted from zero and held
+    to ``want``; the gradients of ``grad_names`` finite and non-zero after
+    the last. Returns the losses and the trained leaves."""
+    import torch
+
+    from ragraph_tpu_torch import native
+    from ragraph_tpu_torch.train.trainer import param_leaves
+    leaves, optimizer = trainer.prepare(params)
+    losses, total = [], {}
+    for i, batch in enumerate(batches + batches[:1]):
+        native.reset_launches()
+        loss, _ = trainer.step(leaves, optimizer, batch, gen)
+        torch.cuda.synchronize()
+        launches = dict(native.LAUNCHES)
+        if launches != want:
+            fail(f"15b {name} step {i}: launches {launches}, expected "
+                 f"{want}")
+        for kernel, n in launches.items():
+            total[kernel] = total.get(kernel, 0) + n
+        losses.append(float(loss))
+    for leaf, t in param_leaves(leaves):
+        if leaf.split(".")[0] in grad_names and (
+                t.grad is None or not bool(torch.isfinite(t.grad).all())
+                or float(t.grad.abs().max()) == 0.0):
+            fail(f"15b {name}: gradient of {leaf} missing, non-finite or all "
+                 f"zero")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fail(f"15b {name}: losses {losses} are not finite, or the first "
+             f"batch's is not lower after {len(batches)} steps")
+    print(f"  15b {name}: {len(losses)} steps, losses {losses}, launches "
+          f"per step {want}", flush=True)
+    return losses, leaves, total
+
+
+def phase_wide_edge(dev, ds, graph):
+    """Phase 15b: phase 6's path (U = I = 131,072, 2^20 interactions, 3
+    layers, batch 2,048) at emb_size 100: WIDE_STEPS pretrain steps, then
+    WIDE_STEPS steps of the finetune model that ``staged_finetune`` trains
+    (retrieve_num 10: kernel A 6 launches a step, kernel C 128 on rows
+    padded to 104 columns), then WIDE_STEPS at retrieve_num 1,000 (the
+    selection family: 128 score matrices and 128 selections a step). Each
+    run's loss on its first batch must be finite and lower after its
+    steps. Returns the launches of the three runs, summed."""
+    import dataclasses
+
+    import torch
+
+    from ragraph_tpu_torch.bench.main_path import finetune_rows
+    from ragraph_tpu_torch.data.edgelist import load_edge_dataset
+    from ragraph_tpu_torch.models.edge import (EdgeGraphArrays,
+                                               EdgeModelConfig, RAGraphEdge)
+    from ragraph_tpu_torch.train.trainer import EdgeTrainer
+    cfg = EdgeModelConfig(emb_size=WIDE_EMB, num_layers=3)
+    print(f"phase 15b: training at U = I = {U}, {graph.num_edges} edges, "
+          f"emb_size {WIDE_EMB}, {cfg.num_layers} layers, batch "
+          f"{cfg.batch_size}: {WIDE_STEPS} steps of each phase", flush=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 60)
+    it = ds.train_batches(cfg.batch_size, np.random.default_rng(SEED + 61))
+    batches = [tuple(torch.from_numpy(a).to(dev) for a in next(it))
+               for _ in range(WIDE_STEPS)]
+    n_chunks = -(-(U + I) // cfg.batch_size)
+    a_step = 2 * cfg.num_layers
+
+    model = RAGraphEdge(cfg, graph, phase="pretrain")
+    params = model.init_params(torch.Generator(dev).manual_seed(SEED + 62))
+    out, launches = {}, {}
+
+    def count(total):
+        for kernel, n in total.items():
+            launches[kernel] = launches.get(kernel, 0) + n
+
+    out["pretrain_losses"], leaves, total = wide_steps(
+        "pretrain", EdgeTrainer(model, ds, logger=lambda *_: None), params,
+        batches, gen, {"csr_gather_scale_segsum": a_step},
+        ("user_embedding", "item_embedding"))
+    count(total)
+    tables = tuple(leaves[k].detach() for k in ("user_embedding",
+                                                "item_embedding"))
+    del model, params, leaves
+    ft_rows, stage_rows = finetune_rows(np.random.default_rng(SEED + 63), U,
+                                        I, FT_ROWS)
+    ft_ds = load_edge_dataset(ft_rows, stage_rows, num_users=U, num_items=I,
+                              phase="finetune")
+    ft_graph = EdgeGraphArrays.from_dataset(ft_ds, dev)
+    grads = ("user_embedding", "item_embedding", "gating_weight",
+             "gating_bias")
+    for k in (cfg.retrieve_num, WIDE_PATH_K):
+        ft_model = RAGraphEdge(dataclasses.replace(cfg, retrieve_num=k),
+                               ft_graph, phase="finetune")
+        ft_model.make_resource_graph(*tables)
+        ft_params = ft_model.init_params(
+            torch.Generator(dev).manual_seed(SEED + 64),
+            pretrained_tables=tables)
+        want = {"csr_gather_scale_segsum": a_step}
+        if k <= 128:
+            want["fused_cosine_topk"] = n_chunks
+        else:
+            want.update(score_matrix=n_chunks, select_topk=n_chunks)
+        out[f"finetune_retrieve_num_{k}_losses"], _, total = wide_steps(
+            f"finetune retrieve_num={k}",
+            EdgeTrainer(ft_model, ft_ds, logger=lambda *_: None), ft_params,
+            batches, gen, want, grads)
+        count(total)
+        del ft_model, ft_params
+        torch.cuda.empty_cache()
+    out["phase_s"], out["launches"] = time.perf_counter() - t0, launches
+    print(json.dumps({"wide_edge": out}), flush=True)
+    return launches
+
+
+def phase_wide_timing(dev, graph, errs, family_launches):
+    """Phase 15d: device times (``device_ms``) of the new shapes beside
+    their one-call yardsticks and bounds, at the main path's refresh chunk
+    (2,048 x 262,144): kernel C at E = 100 (rows padded to 104) and at E =
+    512 and 1,000 (chunks of 128 columns), k = 10; the selection family at
+    E = 100, k = 1,000 (the score matrix and the selection apart, and C's
+    path whole); the bucket family's kernels at E = 100, k = 1,000 (and the
+    family whole by a loop of calls: its glue reads one count to the host);
+    kernel A at D = 100, 514 and 1,024 on the main path's graph. Returns
+    the kernels-line entries of the selection family's two kernels."""
+    import torch
+
+    from ragraph_tpu_torch.ops import bucket_topk as bt
+    from ragraph_tpu_torch.ops import csr_segment as cs
+    from ragraph_tpu_torch.ops import select_topk as sl
+    from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
+    from ragraph_tpu_torch.ops.score_tile import (score_matrix,
+                                                  score_matrix_plain)
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    print("phase 15d: timing the new shapes", flush=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 70)
+    n_r = U + I
+    rows = []
+
+    def bound(n_bytes, n_ops, rate):
+        by_b, by_o = n_bytes / HBM_BYTES_PER_MS, n_ops / rate
+        return {"bound_ms": max(by_b, by_o),
+                "bound_by": "bytes" if by_b >= by_o else "operations"}
+
+    for e, k in ((WIDE_EMB, K_PATH), (512, K_PATH), (1000, K_PATH),
+                 (WIDE_EMB, WIDE_PATH_K)):
+        q = l2_normalize(torch.randn(CHUNK, e, generator=gen, device=dev))
+        keys = l2_normalize(torch.randn(n_r, e, generator=gen, device=dev))
+        qb = q.to(torch.bfloat16).float()
+        kb = keys.to(torch.bfloat16).float()
+        scores = qb @ kb.T
+        rows.append(dict(
+            name="fused_cosine_topk" if k <= 128 else
+            "fused_cosine_topk (score_matrix + select_topk)",
+            Q=CHUNK, R=n_r, E=e, k=k,
+            device_ms=device_ms(lambda: fused_cosine_topk(q, keys, k), 5),
+            library_device_ms=device_ms(lambda: torch.matmul(qb, kb.T), 5)
+            + device_ms(lambda: torch.topk(scores, k, dim=1), 5),
+            **bound(2 * CHUNK * e + 2 * n_r * e + 8 * CHUNK * k,
+                    2 * CHUNK * n_r * e, BF16_FLOP_PER_MS)))
+        print(f"  {json.dumps(rows[-1])}", flush=True)
+        c_library = rows[-1]["library_device_ms"]
+        if e != WIDE_EMB or k <= 128:
+            del q, keys, qb, kb, scores
+            torch.cuda.empty_cache()
+
+    # the family's two kernels apart, at E = 100, k = 1,000
+    qh, kh = q.to(torch.bfloat16), keys.to(torch.bfloat16)
+    kh8 = torch.nn.functional.pad(kh, (0, 4)).contiguous()
+    qh8 = torch.nn.functional.pad(qh, (0, 4)).contiguous()
+    k = WIDE_PATH_K
+    sm = score_matrix(kh8, qh8)
+    family = []
+    for name, kernel, plain, library, n_bytes, n_ops, rate, key in (
+            ("score_matrix", lambda: score_matrix(kh8, qh8),
+             lambda: score_matrix_plain(kh, qh),
+             lambda: torch.matmul(qb, kb.T),
+             2 * CHUNK * WIDE_EMB + 2 * n_r * WIDE_EMB + 4 * sm.numel(),
+             2 * CHUNK * n_r * WIDE_EMB, BF16_FLOP_PER_MS, "score"),
+            ("select_topk", lambda: sl.select_topk(sm, k, n_r),
+             lambda: sl.select_topk_plain(sm[:, :n_r], k),
+             lambda: torch.topk(scores, k, dim=1),
+             4 * CHUNK * n_r + 8 * CHUNK * k, CHUNK * n_r, F32_FLOP_PER_MS,
+             "select")):
+        family.append(dict(
+            name=name, route="cuda",
+            source="ragraph_tpu_torch/csrc/" + (
+                "bucket_topk.cu" if name == "score_matrix"
+                else "select_topk.cu"),
+            replaces="ragraph_tpu/ops/pallas_retrieval.py:130",
+            launches=family_launches.get(name, 0), max_abs_err=errs[key],
+            ms=cuda_ms(kernel, reps=10), plain_ms=cuda_ms(plain, reps=1,
+                                                          warmup=1),
+            **bound(n_bytes, n_ops, rate),
+            library_ms=cuda_ms(library, reps=5),
+            device_ms=device_ms(kernel, 5),
+            library_device_ms=device_ms(library, 5), E=WIDE_EMB, k=k))
+        torch.cuda.empty_cache()
+    del sm, scores, qh8, kh8
+    torch.cuda.empty_cache()
+
+    # the bucket family's kernels at E = 100, k = 1,000, each on what the
+    # path hands it
+    st = bucket_stages(q, keys, k)
+    bm, cand = st["bm"], st["cand"]
+    assign = st["assign"][:, :P_MAX].contiguous()
+    nb = bm.shape[0]
+    n_live = int((assign < CHUNK).sum())
+    e8 = st["qh"].shape[1]
+    for name, kernel, library, n_bytes, n_ops, rate in (
+            ("bucket_max", lambda: bt.bucket_max(st["kh"], st["qh"]), None,
+             2 * n_r * e8 + 2 * CHUNK * e8 + 4 * nb * CHUNK,
+             2 * CHUNK * n_r * WIDE_EMB, BF16_FLOP_PER_MS),
+            ("column_topk (select_topk)", lambda: bt.column_topk(bm, k),
+             lambda: torch.topk(bm, k, dim=0),
+             4 * nb * CHUNK + 8 * CHUNK * k, nb * CHUNK, F32_FLOP_PER_MS),
+            ("bucket_rescore", lambda: bt.bucket_rescore(assign, st["qh"],
+                                                         st["kh"]), None,
+             4 * nb * P_MAX + 2 * CHUNK * e8 + 2 * n_r * e8
+             + 4 * nb * P_MAX * bt.LANE,
+             2 * n_live * bt.LANE * WIDE_EMB, BF16_FLOP_PER_MS),
+            ("row_topk (select_topk)", lambda: bt.row_topk(cand, k),
+             lambda: torch.topk(cand, k, dim=1),
+             4 * cand.numel() + 8 * CHUNK * k, cand.numel(),
+             F32_FLOP_PER_MS)):
+        rows.append(dict(
+            name=name, Q=CHUNK, R=n_r, E=WIDE_EMB, k=k,
+            device_ms=device_ms(kernel, 5),
+            library_device_ms=None if library is None
+            else device_ms(library, 5), **bound(n_bytes, n_ops, rate)))
+        print(f"  {json.dumps(rows[-1])}", flush=True)
+    rows.append(dict(
+        name="bucketed_exact_topk (the family, a loop of calls)", Q=CHUNK,
+        R=n_r, E=WIDE_EMB, k=k, ms=cuda_ms(
+            lambda: bt.bucketed_exact_topk(q, keys, k), reps=5),
+        bucket_rescore_rounds=st["assign"].shape[1] // P_MAX,
+        library_device_ms=c_library,
+        **bound(2 * CHUNK * WIDE_EMB + 2 * n_r * WIDE_EMB + 8 * CHUNK * k,
+                2 * CHUNK * n_r * WIDE_EMB, BF16_FLOP_PER_MS)))
+    print(f"  {json.dumps(rows[-1])}", flush=True)
+    del st, bm, cand, assign, q, keys, qb, kb, qh, kh
+    torch.cuda.empty_cache()
+
+    # kernel A at the new widths, bf16, with the graph's walk plans
+    g = graph
+    n, n_e = g.num_nodes, g.num_edges
+    w = g.edge_norm * 0.5 + g.time_norm * 0.5
+    w_send = g.edge_norm_send * 0.5 + g.time_norm_send * 0.5
+    args = (w, w_send, g.senders, g.recv_indptr, g.recv_of_send,
+            g.send_indptr)
+    planned = {"recv_plan": g.recv_plan, "send_plan": g.send_plan}
+    for d in (WIDE_EMB, 514, 1024):
+        table = torch.randn(n, d, generator=gen, device=dev)
+        tb = table.to(torch.bfloat16).float()
+        wb = w.to(torch.bfloat16).float()
+        with warnings.catch_warnings():    # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            csr = torch.sparse_csr_tensor(g.recv_indptr.long(),
+                                          g.senders.long(), wb, size=(n, n))
+        rows.append(dict(
+            name="csr_gather_scale_segsum", N=n, edges=n_e, D=d,
+            device_ms=device_ms(lambda: cs.gather_scale_segsum(
+                table, *args, bf16=True, **planned)),
+            library_device_ms=device_ms(lambda: torch.sparse.mm(csr, tb), 5),
+            **bound(4 * n * d + 8 * n_e + 4 * (n + 1) + 4 * n * d,
+                    2 * n_e * d, F32_FLOP_PER_MS)))
+        print(f"  {json.dumps(rows[-1])}", flush=True)
+        del table, tb, csr
+        torch.cuda.empty_cache()
+    print(json.dumps({"wide_timing": rows}), flush=True)
+    return family
 
 
 def main() -> int:
@@ -4151,23 +4668,37 @@ def main() -> int:
         c_err, _ = phase_graph_level(dev, tu_root)
         errs["C"] = max(errs["C"], c_err)
         phase_fewshot(dev, tu_root)
+        errs["C"] = max(errs["C"], phase_node_path(
+            dev, tu_root, hidden=WIDE_NODE_HIDDEN, modes=("finetune",),
+            label="phase 15a"))
     a_13, trainer_13, params_13 = phase_host_data(dev, ds, graph)
     ivf_launches = phase_ivf(dev)
     phase_utilities(dev, trainer_13, params_13)
     del trainer_13, params_13
     md_launches = phase_multi_device(dev)
+    t15 = time.perf_counter()
+    wide_launches = phase_wide_edge(dev, ds, graph)
+    wide_errs = wide_topk_checks(torch.Generator(dev).manual_seed(SEED + 51),
+                                 dev)
+    wide_errs.update(wide_segsum_checks(dev, graph, skewed))
+    print(json.dumps({"wide_max_abs_err": wide_errs}), flush=True)
+    for key in ("A", "B", "C", "D", "E", "F", "G", "I"):
+        errs[key] = max(errs[key], wide_errs[key])
     # kernel A's count spans the ops path, the zoo's runs and 13a's epoch;
     # C's and D-G's also 13b's calls at 10M keys
     launches["csr_gather_scale_segsum"] = launches.get(
         "csr_gather_scale_segsum", 0) + zoo_a + a_13
-    for name, n in ivf_launches.items():
-        launches[name] = launches.get(name, 0) + n
-    # phase 14's launches, summed over its ranks
-    for name, n in md_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    # phase 14's launches, summed over its ranks, and phase 15b's
+    for more in (ivf_launches, md_launches, wide_launches):
+        for name, n in more.items():
+            launches[name] = launches.get(name, 0) + n
+    family = phase_wide_timing(dev, graph, wide_errs, wide_launches)
+    print(json.dumps({"phase_15bcd_s": time.perf_counter() - t15}),
+          flush=True)
     kernels = phase_timing(dev, graph, errs, launches, probes, skewed)
+    kernels += family
     phase_step_timing(dev, trained)
-    if len(kernels) != 12 or any(k["launches"] <= 0 for k in kernels):
+    if len(kernels) != 14 or any(k["launches"] <= 0 for k in kernels):
         fail(f"kernels line: {[(k['name'], k['launches']) for k in kernels]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -54,6 +54,13 @@
 // Ties: E and G resolve to the lowest row / column, and once a column or row
 // is exhausted they repeat (-3e38, 0), as the TPU kernels do for inputs that
 // are all at least -3e38 (NaN and -inf are not ordered here).
+//
+// Every width and every k: D and F take rows of any multiple of 8 columns
+// (the wrappers pad), rows wider than 256 in chunks of 128 columns in the
+// same order in both (rg_mma.cuh), so D's maxima stay F's scores to the
+// bit. E and G take k <= 128; the wrappers route a larger k to the
+// selection family (select_topk.cu). rg_score_matrix is D's tile with
+// every score stored: the scores of kernel C's k > 128 path.
 
 #include <math.h>
 
@@ -114,8 +121,12 @@ __device__ __forceinline__ bool key_live(const unsigned (&word)[4], int v) {
 // ---- D ---------------------------------------------------------------------
 
 // kWG warpgroups, 64 queries each, share every key tile; block (x, y) takes
-// queries 64 * kWG * x onwards against buckets per_block * y onwards.
-template <int kWG>
+// queries 64 * kWG * x onwards against buckets per_block * y onwards, one
+// bucket a key tile of rg_mma.cuh's TileWalk (kChunk: rows wider than
+// rgm::kResidentE). kStore: the score matrix of the selection family
+// instead of D's maxima: every score is written, out[q * ld + r] with ld =
+// n_buckets * 128, -3e38 for a masked key or one past R.
+template <int kWG, bool kChunk, bool kStore>
 __global__ void __launch_bounds__(128 * kWG, 4 / kWG)
 bucket_max_kernel(const __nv_bfloat16* __restrict__ keys,
                   const __nv_bfloat16* __restrict__ q,
@@ -124,12 +135,6 @@ bucket_max_kernel(const __nv_bfloat16* __restrict__ keys,
   constexpr int kThreads = 128 * kWG;
   constexpr int kBQ = 64 * kWG;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = rgm::aligned_smem(smem_raw);
-  const uint32_t q_bytes = (uint32_t)rgm::tile_bytes(kBQ, e);
-  const uint32_t k_bytes = (uint32_t)rgm::tile_bytes(kLane, e);
-  const uint32_t qs = rgm::smem_addr(smem);
-  const uint32_t stage[2] = {qs + q_bytes, qs + q_bytes + k_bytes};
-
   const int q0 = blockIdx.x * kBQ;
   const int b_begin = blockIdx.y * per_block;
   const int b_end = min(n_buckets, b_begin + per_block);
@@ -137,31 +142,20 @@ bucket_max_kernel(const __nv_bfloat16* __restrict__ keys,
   const int lane = threadIdx.x & 31;
   // this thread's queries: accumulator rows h = 0, 1
   const int row0 = q0 + 16 * warp + (lane >> 2);
-
-  rgm::load_tile<kThreads>(q, qs, q0, kBQ, n_q, e);
-  rgm::load_tile<kThreads>(keys, stage[0], (long long)b_begin * kLane, kLane,
-                           n_r, e);
-  rgm::cp_async_commit();
+  rgm::TileWalk<kThreads, kBQ, kChunk> walk(
+      rgm::aligned_smem(smem_raw), q, keys, q0, n_q,
+      (long long)b_begin * kLane, n_r, b_end - b_begin, e);
+  walk.start();
   bool nf[4];
   key_flags(valid, (long long)b_begin * kLane, n_r, nf);
 
   for (int b = b_begin; b < b_end; ++b) {
-    const int t = b - b_begin;
-    // bucket b has landed, and every warp is done with bucket b - 1, whose
-    // stage takes bucket b + 1 while bucket b multiplies
-    rgm::cp_async_wait<0>();
-    __syncthreads();
-    if (b + 1 < b_end) {
-      rgm::load_tile<kThreads>(keys, stage[(t + 1) & 1],
-                               (long long)(b + 1) * kLane, kLane, n_r, e);
-      rgm::cp_async_commit();
-    }
+    walk.begin(b - b_begin);
     unsigned word[4];
     const bool all_live = key_words(nf, word);
     if (b + 1 < b_end) key_flags(valid, (long long)(b + 1) * kLane, n_r, nf);
-
     float acc[rgm::kAcc];
-    rgm::mma_tile(acc, qs, kBQ, rgm::kTileM * (warp / 4), stage[t & 1], e);
+    walk.product(acc, b - b_begin, rgm::kTileM * (warp / 4));
     // acc[4j + 2h + x] is query row0 + 8h against key 8j + 2(lane % 4) + x;
     // a masked key scores -3e38
     if (!all_live) {
@@ -169,40 +163,96 @@ bucket_max_kernel(const __nv_bfloat16* __restrict__ keys,
       for (int v = 0; v < rgm::kAcc; ++v)
         if (!key_live(word, v)) acc[v] = kNegInf;
     }
+    if constexpr (kStore) {
+      // two neighbouring keys a thread: a quad writes 32 bytes of a row
+      const long long r0 = (long long)b * kLane + 2 * (lane & 3);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // the maximum of 32 scores as a tree (fmaxf is exact, so the order
-      // does not change the result), then over the quad
-      float m[16];
+      for (int h = 0; h < 2; ++h) {
+        const int gq = row0 + 8 * h;
+        if (gq >= n_q) continue;
+        float* row = out + (long long)gq * n_buckets * kLane + r0;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        m[j] = fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        for (int j = 0; j < rgm::kAcc / 4; ++j)
+          *reinterpret_cast<float2*>(row + 8 * j) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) m[j] = fmaxf(m[j], m[j + 8]);
+      for (int h = 0; h < 2; ++h) {
+        // the maximum of 32 scores as a tree (fmaxf is exact, so the order
+        // does not change the result), then over the quad
+        float m[16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], m[j + 4]);
-      m[0] = fmaxf(fmaxf(m[0], m[2]), fmaxf(m[1], m[3]));
-      float best = fmaxf(m[0], __shfl_xor_sync(kFull, m[0], 1));
-      best = fmaxf(best, __shfl_xor_sync(kFull, best, 2));
-      const int gq = row0 + 8 * h;
-      if ((lane & 3) == h && gq < n_q) out[(long long)b * n_q + gq] = best;
+        for (int j = 0; j < 16; ++j)
+          m[j] = fmaxf(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m[j] = fmaxf(m[j], m[j + 8]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m[j] = fmaxf(m[j], m[j + 4]);
+        m[0] = fmaxf(fmaxf(m[0], m[2]), fmaxf(m[1], m[3]));
+        float best = fmaxf(m[0], __shfl_xor_sync(kFull, m[0], 1));
+        best = fmaxf(best, __shfl_xor_sync(kFull, best, 2));
+        const int gq = row0 + 8 * h;
+        if ((lane & 3) == h && gq < n_q) out[(long long)b * n_q + gq] = best;
+      }
     }
   }
 }
 
-template <int kWG>
+template <int kWG, bool kChunk, bool kStore>
 cudaError_t launch_bucket_max(const dim3& grid, size_t smem, cudaStream_t s,
                               const __nv_bfloat16* keys,
                               const __nv_bfloat16* q, const uint8_t* valid,
                               float* out, int n_r, int n_q, int e,
                               int n_buckets, int per_block) {
   cudaError_t err = cudaFuncSetAttribute(
-      bucket_max_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      bucket_max_kernel<kWG, kChunk, kStore>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  bucket_max_kernel<kWG><<<grid, 128 * kWG, smem, s>>>(
+  bucket_max_kernel<kWG, kChunk, kStore><<<grid, 128 * kWG, smem, s>>>(
       keys, q, valid, out, n_r, n_q, e, n_buckets, per_block);
   return cudaGetLastError();
+}
+
+// D (store = false) or the score matrix (store = true) with the plan
+// (block_q, per_block); the shared checks of both entry points.
+int run_score_tiles(bool store, const void* keys, const void* q,
+                    const void* valid, void* out, int n_r, int n_q, int e,
+                    int block_q, int per_block, void* stream) {
+  if (n_r == 0 || n_q == 0) return (int)cudaGetLastError();
+  if ((block_q != 64 && block_q != 128) || per_block < 1 || e < 8 ||
+      e % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_buckets = (n_r + kLane - 1) / kLane;
+  const int ranges = (n_buckets + per_block - 1) / per_block;
+  if (ranges > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = rgm::kAlign + rgm::ring_bytes(block_q, e);
+  const dim3 grid((n_q + block_q - 1) / block_q, ranges);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* kh = static_cast<const __nv_bfloat16*>(keys);
+  const auto* qh = static_cast<const __nv_bfloat16*>(q);
+  const auto* vb = static_cast<const uint8_t*>(valid);
+  auto* o = static_cast<float*>(out);
+#define RG_SCORE_LAUNCH(WG, CH, ST)                                          \
+  return (int)launch_bucket_max<WG, CH, ST>(grid, smem, s, kh, qh, vb, o,    \
+                                            n_r, n_q, e, n_buckets,          \
+                                            per_block)
+  const bool chunk = rgm::chunked(e);
+  if (store) {
+    if (block_q == 128) {
+      if (chunk) RG_SCORE_LAUNCH(2, true, true);
+      RG_SCORE_LAUNCH(2, false, true);
+    }
+    if (chunk) RG_SCORE_LAUNCH(1, true, true);
+    RG_SCORE_LAUNCH(1, false, true);
+  }
+  if (block_q == 128) {
+    if (chunk) RG_SCORE_LAUNCH(2, true, false);
+    RG_SCORE_LAUNCH(2, false, false);
+  }
+  if (chunk) RG_SCORE_LAUNCH(1, true, false);
+  RG_SCORE_LAUNCH(1, false, false);
+#undef RG_SCORE_LAUNCH
 }
 
 // ---- E ---------------------------------------------------------------------
@@ -302,7 +352,10 @@ cudaError_t launch_column_topk(bool vec, const float* x, float* out_v,
 // ---- F ---------------------------------------------------------------------
 
 // One warpgroup per bucket: the bucket's 128 keys are the B tile, and the
-// query rows of its slots, 64 at a time, the gathered A tile.
+// query rows of its slots, 64 at a time, the gathered A tile. kChunk: rows
+// wider than rgm::kResidentE, the pair of tiles loaded one chunk of
+// rgm::kChunkE columns at a time, by rgm::mma_row as D's.
+template <bool kChunk>
 __global__ void __launch_bounds__(rgm::kTileN)
 bucket_rescore_kernel(const int* __restrict__ assign,
                       const __nv_bfloat16* __restrict__ q,
@@ -315,17 +368,19 @@ bucket_rescore_kernel(const int* __restrict__ assign,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = rgm::aligned_smem(smem_raw);
   const uint32_t ks = rgm::smem_addr(smem);
-  const uint32_t qs = ks + (uint32_t)rgm::tile_bytes(kLane, e);
+  const uint32_t qs = ks + (uint32_t)rgm::piece_bytes(kLane, e);
 
   const int b = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   const long long r0 = (long long)b * kLane;
   const int* ids = assign + (long long)b * p_max;
-  rgm::load_tile<kThreads>(keys, ks, r0, kLane, n_r, e);
-  rgm::load_gathered_tile<kThreads>(q, qs, ids, min(p_max, kSlots), kSlots,
-                                    n_q, e);
-  rgm::cp_async_commit();
+  if constexpr (!kChunk) {
+    rgm::load_tile<kThreads>(keys, ks, r0, kLane, n_r, e);
+    rgm::load_gathered_tile<kThreads>(q, qs, ids, min(p_max, kSlots), kSlots,
+                                      n_q, e);
+    rgm::cp_async_commit();
+  }
   bool f[4];
   key_flags(valid, r0, n_r, f);
   unsigned word[4];
@@ -334,11 +389,22 @@ bucket_rescore_kernel(const int* __restrict__ assign,
   const int col = 2 * (lane & 3);
 
   for (int p0 = 0; p0 < p_max; p0 += kSlots) {
-    rgm::cp_async_wait<0>();
-    __syncthreads();
     float acc[rgm::kAcc];
-    rgm::mma_tile(acc, qs, kSlots, 0, ks, e);
-    if (p0 + kSlots < p_max) {
+    rgm::mma_row<kChunk>(acc, e, kSlots, 0, [&](int c) {
+      if constexpr (kChunk) {
+        const int c0 = c * rgm::kChunkE, w = rgm::piece_width(e, c);
+        __syncthreads();  // every warp's products have read the last chunk
+        rgm::load_tile<kThreads>(keys, ks, r0, kLane, n_r, e, c0, w);
+        rgm::load_gathered_tile<kThreads>(q, qs, ids + p0,
+                                          min(p_max - p0, kSlots), kSlots,
+                                          n_q, e, c0, w);
+        rgm::cp_async_commit();
+      }
+      rgm::cp_async_wait<0>();
+      __syncthreads();
+      return make_uint2(qs, ks);
+    });
+    if (!kChunk && p0 + kSlots < p_max) {
       __syncthreads();  // every warp's products have read these slots' rows
       rgm::load_gathered_tile<kThreads>(q, qs, ids + p0 + kSlots,
                                         min(p_max - p0 - kSlots, kSlots),
@@ -432,32 +498,28 @@ cudaError_t launch_row_topk(bool vec, const float* x, float* out_v,
 extern "C" {
 
 // Kernel D. keys (R, E) and q (Q, E) bf16, row-major, 16-byte aligned,
-// E % 8 == 0, E <= 256; valid (R,) uint8 or null. out is (ceil(R / 128), Q)
-// f32: the largest score of each query in each bucket of 128 consecutive
-// keys, -3e38 where the bucket has no valid key. The plan: block_q (64 or
-// 128) queries per block, per_block buckets per block.
+// E % 8 == 0 (rows wider than 256 in chunks of 128 columns); valid (R,)
+// uint8 or null. out is (ceil(R / 128), Q) f32: the largest score of each
+// query in each bucket of 128 consecutive keys, -3e38 where the bucket has
+// no valid key. The plan: block_q (64 or 128) queries per block, per_block
+// buckets per block.
 int rg_bucket_max(const void* keys, const void* q, const void* valid,
                   void* out, int n_r, int n_q, int e, int block_q,
                   int per_block, void* stream) {
-  if (n_r == 0 || n_q == 0) return (int)cudaGetLastError();
-  if ((block_q != 64 && block_q != 128) || per_block < 1)
-    return (int)cudaErrorInvalidValue;
-  const int n_buckets = (n_r + kLane - 1) / kLane;
-  const int ranges = (n_buckets + per_block - 1) / per_block;
-  if (ranges > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = rgm::kAlign + rgm::tile_bytes(block_q, e) +
-                      2 * rgm::tile_bytes(kLane, e);
-  const dim3 grid((n_q + block_q - 1) / block_q, ranges);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* kh = static_cast<const __nv_bfloat16*>(keys);
-  const auto* qh = static_cast<const __nv_bfloat16*>(q);
-  const auto* vb = static_cast<const uint8_t*>(valid);
-  auto* o = static_cast<float*>(out);
-  return (int)(block_q == 128
-                   ? launch_bucket_max<2>(grid, smem, s, kh, qh, vb, o, n_r,
-                                          n_q, e, n_buckets, per_block)
-                   : launch_bucket_max<1>(grid, smem, s, kh, qh, vb, o, n_r,
-                                          n_q, e, n_buckets, per_block));
+  return run_score_tiles(false, keys, q, valid, out, n_r, n_q, e, block_q,
+                         per_block, stream);
+}
+
+// The score matrix of the selection family (select_topk.cu): D's tiles
+// with every score stored. out is (Q, ceil(R / 128) * 128) f32: out[q, r]
+// is query q's score against key r, -3e38 for an invalid key and for r
+// from R to the end of the last bucket. The scores are bitwise those of D,
+// F and kernel C at the same E. Arguments as D's.
+int rg_score_matrix(const void* keys, const void* q, const void* valid,
+                    void* out, int n_r, int n_q, int e, int block_q,
+                    int per_block, void* stream) {
+  return run_score_tiles(true, keys, q, valid, out, n_r, n_q, e, block_q,
+                         per_block, stream);
 }
 
 // Kernel E. x (R, Q) f32 row-major, every value >= -3e38. out_v / out_i are
@@ -496,12 +558,15 @@ int rg_bucket_rescore(const void* assign, const void* q, const void* keys,
                       const void* valid, void* out, int n_buckets, int p_max,
                       int n_q, int n_r, int e, void* stream) {
   if (n_buckets == 0 || p_max == 0) return (int)cudaGetLastError();
-  const size_t smem = rgm::kAlign + rgm::tile_bytes(kLane, e) +
-                      rgm::tile_bytes(rgm::kTileM, e);
-  cudaError_t err = allow_smem((const void*)bucket_rescore_kernel, smem);
+  if (e < 8 || e % 8 != 0) return (int)cudaErrorInvalidValue;
+  const bool chunk = rgm::chunked(e);
+  const size_t smem = rgm::kAlign + rgm::piece_bytes(kLane, e) +
+                      rgm::piece_bytes(rgm::kTileM, e);
+  auto kernel =
+      chunk ? bucket_rescore_kernel<true> : bucket_rescore_kernel<false>;
+  cudaError_t err = allow_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  bucket_rescore_kernel<<<n_buckets, rgm::kTileN, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_buckets, rgm::kTileN, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(assign), static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(keys),
       static_cast<const uint8_t*>(valid), static_cast<float*>(out), p_max,

@@ -42,7 +42,12 @@
 // time, handing each edge's row address to the lanes with shuffles. All sums
 // are taken directly, in edge order: deterministic, no atomics, and without
 // the cancellation error of the prefix difference. Element offsets are
-// 64-bit, since E*D passes 2^31 at 100M edges.
+// 64-bit, since E*D passes 2^31 at 100M edges. An odd width takes one column
+// a load; a row wider than 512 columns (256 when odd) is summed in column
+// slices of that width, a launch each.
+//
+// A's walk takes any width the same way (rg_csr.cuh: one column a chunk for
+// an odd width, column slices of 512 columns or 256 chunks).
 
 #include "rg_csr.cuh"
 
@@ -53,11 +58,17 @@ constexpr unsigned kFull = 0xffffffffu;
 
 using rgc::round_bf16;
 
-__device__ __forceinline__ float2 load_pair(const float* p) {
+// V = 2 columns (an even width: 8-byte f32 or 4-byte bf16 loads), or 1 (an
+// odd width) at p; a lone column in .x.
+template <int V>
+__device__ __forceinline__ float2 load_cols(const float* p) {
+  if (V == 1) return make_float2(*p, 0.f);
   return *reinterpret_cast<const float2*>(p);
 }
 
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+template <int V>
+__device__ __forceinline__ float2 load_cols(const __nv_bfloat16* p) {
+  if (V == 1) return make_float2(__bfloat162float(*p), 0.f);
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
@@ -65,13 +76,15 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
 constexpr int kPlain = 0;   // B: src[e], unscaled
 constexpr int kPacked = 1;  // I: e's half-split packed row, scaled by w[e]
 
-// CH = number of 64-column chunks a lane covers (d <= 64 * CH). T is the
-// element type of src. `pack_block` is I's B (rows per packed half).
-template <int CH, int MODE, typename T>
+// A lane covers CH chunks of V columns each, columns V * (lane + 32 c), of a
+// slice of dc <= 32 * V * CH columns; src and out point at the slice's first
+// column and rows are d apart. T is the element type of src. `pack_block` is
+// I's B (rows per packed half).
+template <int CH, int V, int MODE, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
                 const int* __restrict__ indptr,
-                float* __restrict__ out, long long n_rows, int d,
+                float* __restrict__ out, long long n_rows, int d, int dc,
                 bool round_w, int pack_block) {
   constexpr bool SCALE = MODE != kPlain;
   const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
@@ -105,9 +118,9 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
       const T* rowp = src + (long long)s * d;
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
-        const int col = 2 * (lane + 32 * c);
-        if (col < d) {
-          float2 x = load_pair(rowp + col);
+        const int col = V * (lane + 32 * c);
+        if (col < dc) {
+          float2 x = load_cols<V>(rowp + col);
           if (MODE == kPacked && sizeof(T) == 4 && round_w) {
             x.x = round_bf16(x.x);   // f32 rows under the bf16 switch
             x.y = round_bf16(x.y);
@@ -126,30 +139,59 @@ csr_rows_kernel(const T* __restrict__ src, const float* __restrict__ w,
   float* orow = out + row * (long long)d;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    const int col = 2 * (lane + 32 * c);
-    if (col < d) *reinterpret_cast<float2*>(orow + col) = acc[c];
+    const int col = V * (lane + 32 * c);
+    if (col < dc) {
+      if (V == 1)
+        orow[col] = acc[c].x;
+      else
+        *reinterpret_cast<float2*>(orow + col) = acc[c];
+    }
   }
 }
 
+// One launch for a slice of dc columns from column c0.
+template <int V, int MODE, typename T>
+void launch_cols(const T* src, const float* w, const int* indptr,
+                  float* out, long long n_rows, int d, int c0, int dc,
+                  bool round_w, cudaStream_t stream, int pack_block) {
+  const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
+  const dim3 block(kWarps * 32);
+  src += c0;
+  out += c0;
+  switch ((dc + 32 * V - 1) / (32 * V)) {
+    case 1: csr_rows_kernel<1, V, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, indptr, out, n_rows, d, dc, round_w, pack_block); break;
+    case 2: csr_rows_kernel<2, V, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, indptr, out, n_rows, d, dc, round_w, pack_block); break;
+    case 3: case 4: csr_rows_kernel<4, V, MODE, T><<<grid, block, 0,
+                                                    stream>>>(
+        src, w, indptr, out, n_rows, d, dc, round_w, pack_block); break;
+    default: csr_rows_kernel<8, V, MODE, T><<<grid, block, 0, stream>>>(
+        src, w, indptr, out, n_rows, d, dc, round_w, pack_block); break;
+  }
+}
+
+// Rows of d columns: column slices of 256 V columns (512 for an even d, 256
+// for an odd one), one launch each.
 template <int MODE, typename T>
 cudaError_t launch(const T* src, const float* w, const int* indptr,
                    float* out, long long n_rows, int d,
                    bool round_w, cudaStream_t stream, int pack_block = 0) {
   if (n_rows == 0) return cudaGetLastError();
-  const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
-  const dim3 block(kWarps * 32);
-  const int ch = (d + 63) / 64;
-  switch (ch) {
-    case 1: csr_rows_kernel<1, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
-    case 2: csr_rows_kernel<2, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
-    case 3: case 4: csr_rows_kernel<4, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
-    default: csr_rows_kernel<8, MODE, T><<<grid, block, 0, stream>>>(
-        src, w, indptr, out, n_rows, d, round_w, pack_block); break;
+  if (d < 1) return cudaErrorInvalidValue;
+  const int slice = d % 2 == 0 ? 512 : 256;
+  for (int c0 = 0; c0 < d; c0 += slice) {
+    const int dc = d - c0 < slice ? d - c0 : slice;
+    if (d % 2 == 0)
+      launch_cols<2, MODE, T>(src, w, indptr, out, n_rows, d, c0, dc,
+                               round_w, stream, pack_block);
+    else
+      launch_cols<1, MODE, T>(src, w, indptr, out, n_rows, d, c0, dc,
+                               round_w, stream, pack_block);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -158,7 +200,7 @@ extern "C" {
 
 // Kernel A. table (N, d): bf16 when bf16_table, and then w (E,) f32 is
 // rounded to bf16 too, else f32; idx (E,) int32; indptr (n_rows + 1,) int32;
-// d even, d <= 512. The walk plan (hub_edges ... n_pieces) is
+// any d >= 1. The walk plan (hub_edges ... n_pieces) is
 // ops/csr_segment.py::walk_plan(indptr); partial is (n_pieces, d) f32
 // scratch. out is (n_rows, d) f32.
 int rg_csr_gather_scale_segsum(const void* table, const void* w,
@@ -177,24 +219,32 @@ int rg_csr_gather_scale_segsum(const void* table, const void* w,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long rb = (long long)d * (bf16_table ? 2 : 4);  // row bytes
+  if (d < 1) return (int)cudaErrorInvalidValue;
   if (bf16_table) {
     if (rb % 16 == 0)
       return (int)rgc::launch_walk(
           rgc::TableRows<__nv_bfloat16, 16>{t, rb, ix, ww, true}, ip, o,
           n_rows, d, (int)(rb / 16), plan, s);
+    if (d % 2 == 0)
+      return (int)rgc::launch_walk(
+          rgc::TableRows<__nv_bfloat16, 4>{t, rb, ix, ww, true}, ip, o,
+          n_rows, d, (int)(rb / 4), plan, s);
     return (int)rgc::launch_walk(
-        rgc::TableRows<__nv_bfloat16, 4>{t, rb, ix, ww, true}, ip, o, n_rows,
-        d, (int)(rb / 4), plan, s);
+        rgc::TableRows<__nv_bfloat16, 2>{t, rb, ix, ww, true}, ip, o, n_rows,
+        d, d, plan, s);
   }
   if (rb % 16 == 0)
     return (int)rgc::launch_walk(rgc::TableRows<float, 16>{
         t, rb, ix, ww, false}, ip, o, n_rows, d, (int)(rb / 16), plan, s);
-  return (int)rgc::launch_walk(rgc::TableRows<float, 8>{
-      t, rb, ix, ww, false}, ip, o, n_rows, d, (int)(rb / 8), plan, s);
+  if (d % 2 == 0)
+    return (int)rgc::launch_walk(rgc::TableRows<float, 8>{
+        t, rb, ix, ww, false}, ip, o, n_rows, d, (int)(rb / 8), plan, s);
+  return (int)rgc::launch_walk(rgc::TableRows<float, 4>{
+      t, rb, ix, ww, false}, ip, o, n_rows, d, d, plan, s);
 }
 
-// Kernel B. `msgs` is (E, d) f32 with rows grouped by segment; d even,
-// d <= 512. out is (n_rows, d) f32.
+// Kernel B. `msgs` is (E, d) f32 with rows grouped by segment; any d >= 1.
+// out is (n_rows, d) f32.
 int rg_csr_segment_sum(const void* msgs, const void* indptr, void* out,
                        long long n_rows, int d, void* stream) {
   return (int)launch<kPlain>(static_cast<const float*>(msgs), nullptr,
@@ -205,7 +255,7 @@ int rg_csr_segment_sum(const void* msgs, const void* indptr, void* out,
 
 // Kernel I. `msgs2` is (n / 2, 2d) in the half-split layout with `block`
 // rows per half, f32 or (with `bf16_rows`) bf16; n is a multiple of
-// 2 * block; d even, d <= 512. With `round_to_bf16`, rows and weights are
+// 2 * block; any d >= 1. With `round_to_bf16`, rows and weights are
 // rounded to bf16 before the f32 multiply-add. w is (n,) f32, out is
 // (n_rows, d) f32.
 int rg_csr_segsum_packed2_w(const void* msgs2, const void* w,

@@ -20,7 +20,10 @@
 // order and carry nothing between them, so R is split across blocks too:
 // block (x, y) holds 64 * kWG queries resident in shared memory and walks
 // the y-th range of keys in tiles of 128, the next tile's cp.async copies in
-// flight while the current one multiplies. Each warpgroup takes its 64
+// flight while the current one multiplies. Rows wider than 256 do not fit
+// resident: the queries' and keys' 128-column chunks are staged together
+// in a two-stage ring, a key tile one product per chunk into the same
+// accumulators. Each warpgroup takes its 64
 // queries' 64 x 128 score tile on the tensor cores (wgmma, rg_mma.cuh) and
 // filters it where it lands, in the accumulator registers: a thread holds
 // 32 scores of each of two queries and the current k-th score of both; one
@@ -58,9 +61,10 @@ constexpr int kMergeWarps = kMergeThreads / 32;
 using rg::kFull;
 using rg::kNegInf;
 
+// The block's shared memory: the alignment slack, rg_mma.cuh's ring of
+// tiles and the (64 * wg, k) lists.
 __host__ __device__ inline size_t smem_bytes(int wg, int e, int k) {
-  return rgm::kAlign + rgm::tile_bytes(64 * wg, e) +
-         2 * rgm::tile_bytes(kBR, e) +
+  return rgm::kAlign + rgm::ring_bytes(64 * wg, e) +
          (sizeof(float) + sizeof(int)) * (size_t)(64 * wg) * k;
 }
 
@@ -138,8 +142,10 @@ __device__ __forceinline__ float from_order_key(int i) {
   return __int_as_float(i >= 0 ? i : i ^ 0x7fffffff);
 }
 
-// kWG warpgroups, 64 queries each, share every key tile.
-template <int kWG>
+// kWG warpgroups, 64 queries each, share every key tile of rg_mma.cuh's
+// TileWalk over the block's range of keys (kChunk: rows wider than
+// rgm::kResidentE).
+template <int kWG, bool kChunk>
 __global__ void __launch_bounds__(128 * kWG, 4 / kWG)
 topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ keys,
@@ -151,12 +157,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kBQ = 64 * kWG;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = rgm::aligned_smem(smem_raw);
-  const size_t q_bytes = rgm::tile_bytes(kBQ, e);
-  const size_t k_bytes = rgm::tile_bytes(kBR, e);
-  const uint32_t qs = rgm::smem_addr(smem);
-  const uint32_t stage[2] = {qs + (uint32_t)q_bytes,
-                             qs + (uint32_t)(q_bytes + k_bytes)};
-  float* ls = reinterpret_cast<float*>(smem + q_bytes + 2 * k_bytes);
+  float* ls = reinterpret_cast<float*>(smem + rgm::ring_bytes(kBQ, e));
   int* li = reinterpret_cast<int*>(ls + kBQ * k);  // (BQ, k) lists
 
   const int q0 = blockIdx.x * kBQ;
@@ -169,9 +170,9 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = tid & 31;
   const int wg = warp / 4;
 
-  rgm::load_tile<kThreads>(q, qs, q0, kBQ, n_q, e);
-  rgm::load_tile<kThreads>(keys, stage[0], r_begin, kBR, r_end, e);
-  rgm::cp_async_commit();
+  rgm::TileWalk<kThreads, kBQ, kChunk> walk(smem, q, keys, q0, n_q, r_begin,
+                                            r_end, n_tiles, e);
+  walk.start();
   for (int t = tid; t < kBQ * k; t += kThreads) {
     ls[t] = kNegInf;
     li[t] = 0;
@@ -202,21 +203,13 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int t = 0; t < n_tiles; ++t) {
     const long long r0 = r_begin + (long long)t * kBR;
-    // tile t has landed, and every warp is done with tile t - 1, whose
-    // stage takes tile t + 1 while tile t multiplies
-    rgm::cp_async_wait<0>();
-    __syncthreads();
+    walk.begin(t);
     // the bound read a tile ago, and the read for the next tile
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       shr[h] = fmaxf(shr[h], from_order_key(next_bound[h]));
       thr[h] = fmaxf(thr[h], shr[h]);
       if (live_q[h]) next_bound[h] = __ldcg(bound + q0 + row0 + 8 * h);
-    }
-    if (t + 1 < n_tiles) {
-      rgm::load_tile<kThreads>(keys, stage[(t + 1) & 1], r0 + kBR, kBR,
-                               r_end, e);
-      rgm::cp_async_commit();
     }
     // bit b of word u: key r0 + 32u + b is live; shifted to this thread's
     // first column 2 * (lane % 4)
@@ -233,7 +226,7 @@ topk_partial_kernel(const __nv_bfloat16* __restrict__ q,
     if (t + 1 < n_tiles) flags(r0 + kBR, nf);
 
     float acc[rgm::kAcc];
-    rgm::mma_tile(acc, qs, kBQ, 64 * wg, stage[t & 1], e);
+    walk.product(acc, t, 64 * wg);
 
     // keys past the range or not valid score -inf and never pass; a tile
     // with no live key is skipped
@@ -372,28 +365,45 @@ topk_merge_kernel(const float* __restrict__ part_s,
   }
 }
 
-template <int kWG>
+template <int kWG, bool kChunk>
 cudaError_t launch_partial(const dim3& grid, size_t smem, cudaStream_t s,
                            const __nv_bfloat16* q, const __nv_bfloat16* keys,
                            const uint8_t* valid, float* part_s, int* part_i,
                            int* bound, int n_q, int n_r, int e, int k,
                            int splits, int rows_per_split) {
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      topk_partial_kernel<kWG, kChunk>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  topk_partial_kernel<kWG><<<grid, 128 * kWG, smem, s>>>(
+  topk_partial_kernel<kWG, kChunk><<<grid, 128 * kWG, smem, s>>>(
       q, keys, valid, part_s, part_i, bound, n_q, n_r, e, k, splits,
       rows_per_split);
   return cudaGetLastError();
+}
+
+template <int kWG>
+cudaError_t launch_partial(bool chunk, const dim3& grid, size_t smem,
+                           cudaStream_t s, const __nv_bfloat16* q,
+                           const __nv_bfloat16* keys, const uint8_t* valid,
+                           float* part_s, int* part_i, int* bound, int n_q,
+                           int n_r, int e, int k, int splits,
+                           int rows_per_split) {
+  return chunk ? launch_partial<kWG, true>(grid, smem, s, q, keys, valid,
+                                           part_s, part_i, bound, n_q, n_r,
+                                           e, k, splits, rows_per_split)
+               : launch_partial<kWG, false>(grid, smem, s, q, keys, valid,
+                                            part_s, part_i, bound, n_q, n_r,
+                                            e, k, splits, rows_per_split);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (Q, E) and keys (R, E) bf16, row-major, 16-byte aligned, E % 8 == 0,
-// E <= 256; valid (R,) uint8 or null; 1 <= k <= 128; block_q 64 or 128
+// q (Q, E) and keys (R, E) bf16, row-major, 16-byte aligned, E % 8 == 0
+// (rows wider than 256 in chunks of 128 columns); valid (R,) uint8 or null;
+// 1 <= k <= 128 (a larger k takes the selection family, select_topk.cu);
+// block_q 64 or 128
 // queries per block; 1 <= splits <= 32 ranges of rows_per_split keys (a
 // multiple of 128). Scratch part_s / part_i hold (Q, splits, k), bound (Q,)
 // int32; out_s / out_i are (Q, k).
@@ -419,10 +429,13 @@ int rg_fused_cosine_topk(const void* q, const void* keys, const void* valid,
   cudaError_t err = cudaMemsetAsync(bd, 0x80, sizeof(int) * (size_t)n_q, s);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = smem_bytes(wg, e, k);
-  err = wg == 2 ? launch_partial<2>(grid, smem, s, qh, kh, vb, ps, pi, bd,
-                                    n_q, n_r, e, k, splits, rows_per_split)
-                : launch_partial<1>(grid, smem, s, qh, kh, vb, ps, pi, bd,
-                                    n_q, n_r, e, k, splits, rows_per_split);
+  const bool chunk = rgm::chunked(e);
+  err = wg == 2 ? launch_partial<2>(chunk, grid, smem, s, qh, kh, vb, ps, pi,
+                                    bd, n_q, n_r, e, k, splits,
+                                    rows_per_split)
+                : launch_partial<1>(chunk, grid, smem, s, qh, kh, vb, ps, pi,
+                                    bd, n_q, n_r, e, k, splits,
+                                    rows_per_split);
   if (err != cudaSuccess) return (int)err;
   topk_merge_kernel<<<(n_q + kMergeWarps - 1) / kMergeWarps, kMergeThreads, 0,
                       s>>>(ps, pi, static_cast<float*>(out_s),

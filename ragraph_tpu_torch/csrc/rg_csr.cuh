@@ -14,9 +14,14 @@
 //
 // Lane groups. A group of G lanes sums one output row at a time. A row is
 // cut into chunks of one load each: 16 bytes (8 bf16 or 4 f32 columns) when the row's
-// bytes are a multiple of 16, else a pair of columns (4 or 8 bytes). G is the
+// bytes are a multiple of 16, else a pair of columns (4 or 8 bytes), else
+// (an odd width) one column. G is the
 // least power of two >= the number of chunks, at most 32; lane l of the group
 // owns chunks l, l + G, ... (A's 64-wide bf16 row: 8 lanes, 4 groups a warp).
+// A row of more chunks than a source's kMaxChunks (512 columns, 256 of one
+// column a chunk) is walked in column slices of that many chunks, each by
+// launches of its own (launch_walk); a column's sum is the same in a slice
+// as in a whole row.
 //
 // Latency. The gathers read rows from L2 (A's 33.5 MB bf16 table fits its 50
 // MB), so the walk keeps loads in flight rather than saving bytes; on the
@@ -60,10 +65,15 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// VB bytes at p, as 32-bit words, through the read-only path.
+// 32-bit words of a load of VB bytes (one for 2 bytes).
+template <int VB>
+constexpr int kWordsOf = (VB + 3) / 4;
+
+// VB bytes at p, as 32-bit words, through the read-only path (2 bytes in
+// the low half of a word).
 template <int VB>
 __device__ __forceinline__ void load_words(const char* p,
-                                           uint32_t (&w)[VB / 4]) {
+                                           uint32_t (&w)[kWordsOf<VB>]) {
   if constexpr (VB == 16) {
     const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
     w[0] = v.x;
@@ -74,31 +84,42 @@ __device__ __forceinline__ void load_words(const char* p,
     const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
     w[0] = v.x;
     w[1] = v.y;
-  } else {
+  } else if constexpr (VB == 4) {
     w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
   }
 }
 
-// The columns of W words of T (bf16: the low half is the first column).
+// The columns of W words of T (bf16: the low half is the first column; one
+// bf16 column alone sits in the low half).
 template <typename T, int W, int N>
 __device__ __forceinline__ void unpack(const uint32_t (&w)[W],
                                        float (&v)[N]) {
-  static_assert(N == W * 4 / (int)sizeof(T), "columns of W words");
+  static_assert(N == W * 4 / (int)sizeof(T) || (N == 1 && W == 1),
+                "columns of W words");
+  if constexpr (sizeof(T) == 2 && N == 1) {
+    v[0] = __uint_as_float(w[0] << 16);
+  } else {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    if constexpr (sizeof(T) == 2) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    } else {
-      v[i] = __uint_as_float(w[i]);
+    for (int i = 0; i < W; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        v[2 * i] = __uint_as_float(w[i] << 16);
+        v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      } else {
+        v[i] = __uint_as_float(w[i]);
+      }
     }
   }
 }
 
-// N f32 columns at p (16-byte aligned when N % 4 == 0, else 8-byte).
+// N f32 columns at p (16-byte aligned when N % 4 == 0, else 8-byte, or
+// one column).
 template <int N>
 __device__ __forceinline__ void load_f32(const float* p, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
+  if constexpr (N == 1) {
+    v[0] = __ldg(p);
+  } else if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) {
       const float4 x = __ldg(reinterpret_cast<const float4*>(p) + i);
@@ -122,7 +143,12 @@ __device__ __forceinline__ void load_f32(const float* p, float (&v)[N]) {
 template <int N>
 __device__ __forceinline__ void store_f32(float* p, const float (&v)[N],
                                           bool stream) {
-  if constexpr (N % 4 == 0) {
+  if constexpr (N == 1) {
+    if (stream)
+      __stcs(p, v[0]);
+    else
+      *p = v[0];
+  } else if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 4; ++i) {
       const float4 x = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
@@ -149,13 +175,16 @@ __device__ __forceinline__ void store_f32(float* p, const float (&v)[N],
 // ---- the two message sources -------------------------------------------------
 
 // Kernel A: w[e] * table[idx[e]], table rows of d elements of T; w rounded to
-// bf16 when round_w.
+// bf16 when round_w. A chunk is VB bytes: 16, a pair of columns, or one.
 template <typename T, int VB>
 struct TableRows {
-  static constexpr int kWords = VB / 4;             // per load
+  static constexpr int kVB = VB;
+  static constexpr int kWords = kWordsOf<VB>;       // per load
   static constexpr int kEl = VB / (int)sizeof(T);   // columns of a chunk
   static constexpr int kLoads = 1;                  // loads an edge and chunk
-  static constexpr int kMaxChunks = 512 * (int)sizeof(T) / VB;  // d <= 512
+  // a slice: 512 columns, or 256 of one column a chunk
+  static constexpr int kMaxChunks =
+      kEl == 1 ? 256 : 512 * (int)sizeof(T) / VB;
   struct Edge {
     int s;
     float w;
@@ -195,6 +224,7 @@ struct TableRows {
 // weights rounded to bf16. A chunk is loaded from each half.
 template <int VB>
 struct PackedRows {
+  static constexpr int kVB = VB;
   static constexpr int kWords = VB / 4;
   static constexpr int kEl = VB / 2;
   static constexpr int kLoads = 2;
@@ -492,12 +522,12 @@ cudaError_t run(const Src& src, const int* indptr, float* out,
   return cudaGetLastError();
 }
 
-// Both launches for rows of n_chunks chunks: the group width and the chunks
-// a lane owns follow from it.
+// Both launches for rows of n_chunks chunks (at most Src::kMaxChunks): the
+// group width and the chunks a lane owns follow from it.
 template <class Src>
-cudaError_t launch_walk(const Src& src, const int* indptr, float* out,
-                        long long n_rows, int d, int n_chunks,
-                        const Plan& plan, cudaStream_t stream) {
+cudaError_t launch_slice(const Src& src, const int* indptr, float* out,
+                         long long n_rows, int d, int n_chunks,
+                         const Plan& plan, cudaStream_t stream) {
 #define RGC_RUN(G, CH) \
   return run<Src, G, CH>(src, indptr, out, n_rows, d, n_chunks, plan, stream)
   if (n_chunks <= 1) RGC_RUN(1, 1);
@@ -519,6 +549,27 @@ cudaError_t launch_walk(const Src& src, const int* indptr, float* out,
   }
 #undef RGC_RUN
   return cudaErrorInvalidValue;
+}
+
+// The walk of rows of n_chunks chunks, d columns (the row stride of out and
+// of the plan's partial sums): one launch_slice for each column slice of
+// Src::kMaxChunks chunks.
+template <class Src>
+cudaError_t launch_walk(const Src& src, const int* indptr, float* out,
+                        long long n_rows, int d, int n_chunks,
+                        const Plan& plan, cudaStream_t stream) {
+  for (int c0 = 0; c0 < n_chunks; c0 += Src::kMaxChunks) {
+    Src slice = src;
+    slice.table += (long long)c0 * Src::kVB;
+    Plan p = plan;
+    p.partial += c0 * Src::kEl;
+    const cudaError_t err = launch_slice(
+        slice, indptr, out + c0 * Src::kEl, n_rows, d,
+        n_chunks - c0 < Src::kMaxChunks ? n_chunks - c0 : Src::kMaxChunks, p,
+        stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // Plan from the entry points' arguments.

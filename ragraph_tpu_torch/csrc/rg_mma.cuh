@@ -23,7 +23,17 @@
 //
 // Loads are cp.async copies of 16 bytes that zero-fill what lies past the
 // source's rows or width, so the kernels stage the next key tile while the
-// current one multiplies.
+// current one multiplies. The sources are rows of a multiple of 8 values
+// (the wrappers pad a narrower row with zero columns, which add exactly 0).
+//
+// Wide rows. A row of at most kResidentE values stays whole in one tile.
+// A wider one is walked in chunks of kChunkE columns, chunk after chunk
+// into the same accumulators, each chunk a tile pair of its own. mma_row
+// takes those steps for every kernel (C, D, F and the score matrix), so
+// the score of a pair is the same sequence of k16 steps in all of them (D
+// and F stay bitwise equal, and C's scores are the score matrix's);
+// TileWalk is the two-stage ring of key tiles that C, D and the score
+// matrix share.
 
 #pragma once
 
@@ -38,14 +48,41 @@ constexpr int kTileN = 128;   // B rows per tile
 constexpr int kAcc = 64;      // f32 accumulators per thread (64 * 128 / 128)
 constexpr int kAlign = 1024;  // swizzle-atom alignment of a tile
 
+constexpr int kResidentE = 256;  // widest row kept whole in a tile
+constexpr int kChunkE = 128;     // columns of a chunk of a wider row
+
 // E rounded up to the k16 step.
 __host__ __device__ inline int padded_width(int e) {
   return (e + 15) / 16 * 16;
 }
 
+// Whether rows of e values are walked in chunks of kChunkE, and how many.
+__host__ __device__ inline bool chunked(int e) { return e > kResidentE; }
+__host__ __device__ inline int n_chunks(int e) {
+  return chunked(e) ? (e + kChunkE - 1) / kChunkE : 1;
+}
+// Width of piece c of a row of e values: the whole row where it stays
+// resident, else chunk c.
+__host__ __device__ inline int piece_width(int e, int c) {
+  if (!chunked(e)) return e;
+  return e - c * kChunkE < kChunkE ? e - c * kChunkE : kChunkE;
+}
+
 // Bytes of a tile of `rows` rows at width e.
 __host__ __device__ inline size_t tile_bytes(int rows, int e) {
   return (size_t)rows * 128 * ((padded_width(e) + 63) / 64);
+}
+
+// Bytes of a tile of `rows` rows that holds one piece of a row of e values.
+__host__ __device__ inline size_t piece_bytes(int rows, int e) {
+  return tile_bytes(rows, chunked(e) ? kChunkE : e);
+}
+
+// Bytes of TileWalk's ring for bq queries at width e: the resident query
+// tile and two key tiles, or two stages of a (query, key) chunk pair.
+__host__ __device__ inline size_t ring_bytes(int bq, int e) {
+  return (chunked(e) ? 2 : 1) * piece_bytes(bq, e) +
+         2 * piece_bytes(kTileN, e);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -79,16 +116,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Stage rows g0 .. g0+rows-1 of a row-major (*, e) bf16 matrix into the tile
-// at shared address `dst`; rows at or past `limit` and the padding columns
-// are zero. E % 8 == 0 and rows are 16-byte aligned. Called by all kThreads
-// threads of the block; completes at cp_async_wait.
+// Stage columns c0 .. c0+w-1 of rows g0 .. g0+rows-1 of a row-major (*, e)
+// bf16 matrix into the tile at shared address `dst` (a tile of width w);
+// rows at or past `limit` and the padding columns are zero. e % 8 == 0,
+// c0 % 8 == 0 and rows are 16-byte aligned. Called by all kThreads threads
+// of the block; completes at cp_async_wait.
 template <int kThreads>
 __device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ g,
                                           uint32_t dst, long long g0,
-                                          int rows, long long limit, int e) {
-  const int chunks = padded_width(e) / 8;  // 16-byte chunks per tile row
-  const int live = e / 8;
+                                          int rows, long long limit, int e,
+                                          int c0 = 0, int w = -1) {
+  if (w < 0) w = e;
+  const int chunks = padded_width(w) / 8;  // 16-byte chunks per tile row
+  const int live = w / 8;
+  g += c0;
   for (int t = threadIdx.x; t < rows * chunks; t += kThreads) {
     const int r = t / chunks;
     const int c = t - r * chunks;
@@ -100,16 +141,19 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ g,
   }
 }
 
-// load_tile for a gathered A tile: tile row r holds row ids[r] of a
-// row-major (n_src, e) bf16 matrix for r < n_ids; a row whose id lies
-// outside [0, n_src), the rows from n_ids to `rows` and the padding columns
-// are zero. ids is in global memory.
+// load_tile for a gathered A tile: tile row r holds columns c0 .. c0+w-1
+// of row ids[r] of a row-major (n_src, e) bf16 matrix for r < n_ids; a row
+// whose id lies outside [0, n_src), the rows from n_ids to `rows` and the
+// padding columns are zero. ids is in global memory.
 template <int kThreads>
 __device__ __forceinline__ void load_gathered_tile(
     const __nv_bfloat16* __restrict__ g, uint32_t dst,
-    const int* __restrict__ ids, int n_ids, int rows, int n_src, int e) {
-  const int chunks = padded_width(e) / 8;
-  const int live = e / 8;
+    const int* __restrict__ ids, int n_ids, int rows, int n_src, int e,
+    int c0 = 0, int w = -1) {
+  if (w < 0) w = e;
+  const int chunks = padded_width(w) / 8;
+  const int live = w / 8;
+  g += c0;
   for (int t = threadIdx.x; t < rows * chunks; t += kThreads) {
     const int r = t / chunks;
     const int c = t - r * chunks;
@@ -168,8 +212,9 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kAcc],
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d = A . B^T for the calling warpgroup: A is rows a_row0 .. a_row0+63 of
-// the tile at `a` (a_rows rows in all), B the 128-row tile at `b`, over
+// d = A . B^T for the calling warpgroup (d += A . B^T with `accumulate`,
+// a later chunk of a wide row): A is rows a_row0 .. a_row0+63 of the tile
+// at `a` (a_rows rows in all), B the 128-row tile at `b`, over
 // padded_width(e) / 16 steps of k16. All 128 threads of the warpgroup call
 // it; the result is in d when it returns.
 //
@@ -178,7 +223,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[kAcc],
 // 8j + 2(l % 4) + x.
 __device__ __forceinline__ void mma_tile(float (&d)[kAcc], uint32_t a,
                                          int a_rows, int a_row0, uint32_t b,
-                                         int e) {
+                                         int e, bool accumulate = false) {
   const int steps = padded_width(e) / 16;
   fence_operand(d);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -187,11 +232,112 @@ __device__ __forceinline__ void mma_tile(float (&d)[kAcc], uint32_t a,
     const uint32_t atom = s >> 2;
     wgmma_m64n128k16(
         d, descriptor(a + atom * a_rows * 128 + a_row0 * 128 + in_atom),
-        descriptor(b + atom * kTileN * 128 + in_atom), s > 0);
+        descriptor(b + atom * kTileN * 128 + in_atom), s > 0 || accumulate);
   }
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   fence_operand(d);
 }
+
+// d = A . B^T over a whole row of e values, piece after piece into the same
+// accumulators: the one order of k16 steps of every kernel on this tile.
+// kChunk false: the row stays resident, one piece (e <= kResidentE); true:
+// n_chunks(e) pieces of kChunkE columns. land(c) makes piece c's pair of
+// tiles visible to the warpgroup (its copies landed, a block barrier) and
+// returns their shared addresses, A's in .x and B's in .y. Arguments
+// otherwise as mma_tile's.
+template <bool kChunk, class Land>
+__device__ __forceinline__ void mma_row(float (&d)[kAcc], int e, int a_rows,
+                                        int a_row0, Land land) {
+  const int n = kChunk ? n_chunks(e) : 1;
+  for (int c = 0; c < n; ++c) {
+    const uint2 ab = land(c);
+    mma_tile(d, ab.x, a_rows, a_row0, ab.y, kChunk ? piece_width(e, c) : e,
+             c > 0);
+  }
+}
+
+// The walk of kernels C and D and of the score matrix: kBQ query rows from
+// q0 against key tiles t = 0 .. n_tiles - 1 of kTileN rows from k0, in a
+// ring of ring_bytes(kBQ, e) bytes of shared memory, the next piece's
+// copies in flight while the current one multiplies. kChunk false (rows of
+// at most kResidentE values): the query tile stays resident and piece t is
+// key tile t. kChunk true: piece p = t * n_chunks(e) + c is chunk c of the
+// query tile and of key tile t, in stage p % 2. Query rows at or past
+// q_limit and key rows at or past k_limit are zero.
+template <int kThreads, int kBQ, bool kChunk>
+struct TileWalk {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* keys;
+  long long q0, q_limit, k0, k_limit;
+  int n_tiles, e, n_ch;
+  uint32_t base, qb, kb;  // the ring's address, a query and a key tile's bytes
+
+  __device__ TileWalk(uint8_t* smem, const __nv_bfloat16* q_,
+                      const __nv_bfloat16* keys_, long long q0_,
+                      long long q_limit_, long long k0_, long long k_limit_,
+                      int n_tiles_, int e_)
+      : q(q_), keys(keys_), q0(q0_), q_limit(q_limit_), k0(k0_),
+        k_limit(k_limit_), n_tiles(n_tiles_), e(e_),
+        n_ch(kChunk ? n_chunks(e_) : 1), base(smem_addr(smem)),
+        qb((uint32_t)piece_bytes(kBQ, e_)),
+        kb((uint32_t)piece_bytes(kTileN, e_)) {}
+
+  // The query and key tiles of stage s: resident, [q][k 0][k 1]; chunked,
+  // [q 0][k 0][q 1][k 1].
+  __device__ uint32_t q_tile(int s) const {
+    return kChunk ? base + s * (qb + kb) : base;
+  }
+  __device__ uint32_t k_tile(int s) const {
+    return kChunk ? base + s * (qb + kb) + qb : base + qb + s * kb;
+  }
+
+  // Stage piece p, if there is one, as one copy group. All kThreads
+  // threads call it.
+  __device__ void issue(int p) {
+    const int t = kChunk ? p / n_ch : p;
+    if (t >= n_tiles) return;
+    const long long r = k0 + (long long)t * kTileN;
+    if (kChunk) {
+      const int c = p - t * n_ch;
+      const int c0 = c * kChunkE, w = piece_width(e, c);
+      load_tile<kThreads>(q, q_tile(p & 1), q0, kBQ, q_limit, e, c0, w);
+      load_tile<kThreads>(keys, k_tile(p & 1), r, kTileN, k_limit, e, c0, w);
+    } else {
+      load_tile<kThreads>(keys, k_tile(p & 1), r, kTileN, k_limit, e);
+    }
+    cp_async_commit();
+  }
+
+  // Stage the resident query tile, if the row stays resident, and piece 0,
+  // as one copy group.
+  __device__ void start() {
+    if (n_tiles <= 0) return;
+    if (!kChunk) load_tile<kThreads>(q, q_tile(0), q0, kBQ, q_limit, e);
+    issue(0);
+  }
+
+  // Wait for piece p's copies, then a block barrier: every warp is done
+  // with the piece before, whose stage then takes piece p + 1.
+  __device__ void land(int p) {
+    cp_async_wait<0>();
+    __syncthreads();
+    issue(p + 1);
+  }
+
+  // Land key tile t's first piece. All threads of the block call it for
+  // t = 0, 1, ... in turn, after start(), each time before product(t).
+  __device__ void begin(int t) { land(t * n_ch); }
+
+  // d = the scores of query rows a_row0 .. a_row0 + 63 of the tile against
+  // key tile t, landing its further pieces as it goes.
+  __device__ void product(float (&d)[kAcc], int t, int a_row0) {
+    mma_row<kChunk>(d, e, kBQ, a_row0, [&](int c) {
+      const int p = t * n_ch + c;
+      if (c > 0) land(p);
+      return make_uint2(q_tile(p & 1), k_tile(p & 1));
+    });
+  }
+};
 
 }  // namespace rgm

@@ -56,6 +56,11 @@ _SIGNATURES = {
     # keys, q, valid, out, R, Q, E, queries per block, buckets per block,
     # stream
     "rg_bucket_max": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # keys, q, valid, out, R, Q, E, queries per block, buckets per block,
+    # row stride of out, stream
+    "rg_score_matrix": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, row stride, rows, n, k, sort width, scratch, out_v, out_i, stream
+    "rg_select_topk": [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P],
     # x, out_v, out_i, R, Q, k, list length, columns per block, stream
     "rg_column_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # assign, q, keys, valid, out, buckets, P, Q, R, E, stream

@@ -4,7 +4,7 @@ candidates (counterpart of ``ragraph_tpu/ops/bucket_topk.py``).
 **Phase 1 (kernel D)**: the scores of every query against every key, bf16
 inputs and f32 sums, reduced at once to the maximum of each bucket of 128
 consecutive keys. The ``(Q, R)`` scores are never stored; the result is
-``(R/128, Q)``. Its tile plan is :func:`_bucket_max_plan`.
+``(R/128, Q)``. Its tile plan is ``score_tile.tile_plan``.
 
 **Glue (kernel E, then PyTorch)**: each query's ``k`` best buckets. The
 ``k`` largest bucket maxima are ``k`` distinct keys, so the ``k``-th largest
@@ -32,71 +32,41 @@ the tier is exact because every score of phase 2 is bitwise the score that
 phase 1 took the maximum of. On the card kernels D and F sum the exact
 bf16 products on the tensor cores, in one order for both
 (``csrc/rg_mma.cuh``, the tile kernel C uses too). The plain versions below
-add them in sequence (:func:`_fma_chain`), the same order in D's and F's,
+add them in sequence (``score_tile.fma_chain``), the same order in D's and F's,
 and so differ from the card's scores by a few f32 roundings.
 
 Each kernel has a plain PyTorch version here (``*_plain``). A wrapper runs
 it only for tensors on the CPU; for CUDA tensors it launches the kernel
 (``csrc/bucket_topk.cu``) or raises.
+
+Any width and any ``k``: D and F take rows padded with zero columns to a
+multiple of 8 (``score_tile.bf16_rows``) and walk rows wider than 256 in
+chunks of 128 columns, in one order for both; E and G take ``k`` up to
+their 128-entry warp lists and route a larger ``k`` to the selection
+family (:mod:`.select_topk`), so the path selects ``k`` of ``k`` buckets'
+``k * 128`` candidates for every ``k``.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
 from ragraph_tpu_torch import native
 from ragraph_tpu_torch.ops.csr_segment import _check_cuda
-from ragraph_tpu_torch.ops.fused_retrieval import (_SMEM_RESERVED, _SMEM_SM,
-                                                   _smem_bytes)
+from ragraph_tpu_torch.ops.score_tile import (
+    LANE, bf16_rows, check_qk, device_memory, fma_chain, pass_rows, sms,
+    tile_plan, valid_u8)
+from ragraph_tpu_torch.ops.select_topk import select_topk
 
 NEG_INF = -3.0e38
-LANE = 128    # bucket width
-MAX_K = 128   # kernels E and G hold at most 128 entries a warp
-MAX_E = 256
+MAX_K = 128   # kernels E and G hold at most 128 entries a warp; a larger k
+              # takes the selection family
 _Q_CHUNK = 4096   # queries per pass; the p_max capacity is per pass
 
 
-def _fma_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``sum_c a[..., c] * b[..., c]`` in f32, added in ascending ``c`` into
-    one accumulator that starts at 0: the plain versions' order. The inputs
-    hold bf16 values, whose products are exact in f32, so a fused and an
-    unfused multiply-add give the same bits."""
-    a, b = a.float(), b.float()
-    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
-                      dtype=torch.float32, device=a.device)
-    for c in range(a.shape[-1]):
-        acc.addcmul_(a[..., c], b[..., c])
-    return acc
-
-
-def _valid_u8(valid_mask, n_r: int, device) -> torch.Tensor | None:
-    if valid_mask is None:
-        return None
-    valid = valid_mask.to(device=device, dtype=torch.bool).contiguous()
-    if valid.shape != (n_r,):
-        raise ValueError(f"valid_mask must be ({n_r},), got "
-                         f"{tuple(valid.shape)}")
-    return valid
-
-
-def _check_qk(name: str, queries: torch.Tensor, keys: torch.Tensor) -> None:
-    """The bf16 ``(Q, E)`` / ``(R, E)`` pair that kernels D and F take."""
-    _check_cuda(name, queries=(queries, torch.bfloat16, 2),
-                keys=(keys, torch.bfloat16, 2))
-    e = queries.shape[1]
-    if keys.shape[1] != e:
-        raise ValueError(f"{name}: keys {tuple(keys.shape)} do not match "
-                         f"queries {tuple(queries.shape)}")
-    if e % 8 or not 0 < e <= MAX_E:
-        raise ValueError(f"{name}: width must be a multiple of 8 and at "
-                         f"most {MAX_E}, got {e}")
-
-
 def _check_k(name: str, k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{name} takes 1 <= k <= {MAX_K}, got k={k}")
+    if k < 1:
+        raise ValueError(f"{name} takes k >= 1, got k={k}")
 
 
 def _check_nonempty(name: str, what: str, x: torch.Tensor, dim: int) -> None:
@@ -105,21 +75,17 @@ def _check_nonempty(name: str, what: str, x: torch.Tensor, dim: int) -> None:
                          f"{tuple(x.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 # ---- phase 1: kernel D ------------------------------------------------------
 
 def bucket_max_plain(keys: torch.Tensor, queries: torch.Tensor,
                      valid_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version of kernel D: the ``(R, Q)`` scores in full, invalid
+    """Plain version of kernel D: the ``(R, Q)`` scores in full (by
+    ``score_tile.fma_chain``), invalid
     rows and the last bucket's padding at ``-3e38``, then the maximum over
     each group of 128 rows."""
     n_r, n_q = keys.shape[0], queries.shape[0]
     nb = -(-n_r // LANE)
-    scores = _fma_chain(keys.to(torch.bfloat16)[:, None, :],
+    scores = fma_chain(keys.to(torch.bfloat16)[:, None, :],
                         queries.to(torch.bfloat16)[None, :, :])
     if valid_mask is not None:
         scores = torch.where(valid_mask.bool()[:, None], scores, NEG_INF)
@@ -129,27 +95,6 @@ def bucket_max_plain(keys: torch.Tensor, queries: torch.Tensor,
     return scores.view(nb, LANE, n_q).amax(dim=1)
 
 
-def _bucket_max_plan(n_q: int, n_r: int, e: int,
-                     sms: int) -> tuple[int, int, int]:
-    """Kernel D's tile plan on a card with ``sms`` SMs: ``(queries per
-    block, ranges, buckets per range)``.
-
-    Kernel C's plan (``fused_retrieval._splits``) without the top-k lists,
-    so a block's shared memory is C's at ``k = 0``: a block of 128 queries
-    (two warpgroups) shares each bucket's key tile where that still gives
-    every SM a block, else 64. The buckets are cut into as many ranges as
-    the SMs hold resident beside the query blocks (two blocks of 128
-    queries or four of 64 per SM, fewer where shared memory runs out), so
-    the launch is one wave."""
-    nb = -(-n_r // LANE)
-    bq = 128 if -(-n_q // 128) * nb >= sms else 64
-    per_sm = min(256 // bq,
-                 _SMEM_SM // (_smem_bytes(bq, e, 0) + _SMEM_RESERVED))
-    ranges = max(1, min(nb, per_sm * sms // -(-n_q // bq)))
-    per_range = -(-nb // ranges)
-    return bq, -(-nb // per_range), per_range
-
-
 def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
                valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Bucket maxima ``(ceil(R/128), Q)`` f32 of bf16 ``keys (R, E)`` against
@@ -157,15 +102,14 @@ def bucket_max(keys: torch.Tensor, queries: torch.Tensor,
     if keys.device.type == "cpu":
         return bucket_max_plain(keys, queries, valid_mask)
     name = "bucket_max"
-    _check_qk(name, queries, keys)
+    queries, keys = check_qk(name, queries, keys)
     n_r, n_q = keys.shape[0], queries.shape[0]
-    valid = _valid_u8(valid_mask, n_r, keys.device)
+    valid = valid_u8(valid_mask, n_r, keys.device)
     out = torch.empty((-(-n_r // LANE), n_q), dtype=torch.float32,
                       device=keys.device)
     if out.numel() == 0:
         return out
-    bq, _, per_range = _bucket_max_plan(n_q, n_r, keys.shape[1],
-                                        _sms(keys.device))
+    bq, _, per_range = tile_plan(n_q, n_r, keys.shape[1], sms(keys.device))
     rc = native.lib().rg_bucket_max(
         keys.data_ptr(), queries.data_ptr(),
         valid.data_ptr() if valid is not None else None, out.data_ptr(),
@@ -244,7 +188,9 @@ def column_topk(x: torch.Tensor, k: int):
 
     Returns ``(vals (Q, k) f32, idx (Q, k) int32)`` sorted descending, ties
     to the lowest row; once a column has nothing above ``-3e38`` left its
-    slots hold ``(-3e38, 0)``. Values must be at least ``-3e38``.
+    slots hold ``(-3e38, 0)``. Values must be at least ``-3e38``. On the
+    card a ``k`` above ``MAX_K`` takes the selection family on the
+    transpose.
     """
     _check_k("column_topk", k)
     _check_nonempty("column_topk", "row", x, 0)
@@ -253,6 +199,8 @@ def column_topk(x: torch.Tensor, k: int):
     name = "column_topk"
     x = x.float().contiguous()
     _check_cuda(name, x=(x, torch.float32, 2))
+    if k > MAX_K:
+        return select_topk(x.T.contiguous(), k)
     n_r, n_q = x.shape
     vals, idx = _topk_outputs(n_q, k, x.device)
     if n_q == 0:
@@ -268,7 +216,8 @@ def column_topk(x: torch.Tensor, k: int):
 
 def row_topk(x: torch.Tensor, k: int):
     """Exact top-``k`` over axis 1 of ``x (Q, W)``: the contract of
-    :func:`column_topk` along rows, ties to the lowest column."""
+    :func:`column_topk` along rows, ties to the lowest column; on the card
+    a ``k`` above ``MAX_K`` takes the selection family."""
     _check_k("row_topk", k)
     _check_nonempty("row_topk", "column", x, 1)
     if x.device.type == "cpu":
@@ -276,13 +225,15 @@ def row_topk(x: torch.Tensor, k: int):
     name = "row_topk"
     x = x.float().contiguous()
     _check_cuda(name, x=(x, torch.float32, 2))
+    if k > MAX_K:
+        return select_topk(x, k)
     n_q, w = x.shape
     vals, idx = _topk_outputs(n_q, k, x.device)
     if n_q == 0:
         return vals, idx
     rc = native.lib().rg_row_topk(x.data_ptr(), vals.data_ptr(),
                                   idx.data_ptr(), n_q, w, k,
-                                  *_row_topk_plan(n_q, k, _sms(x.device)),
+                                  *_row_topk_plan(n_q, k, sms(x.device)),
                                   native.stream_ptr(x))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
@@ -309,7 +260,7 @@ def bucket_rescore_plain(assign: torch.Tensor, queries: torch.Tensor,
     if valid_mask is not None:
         live = live & valid_mask.bool()[rows.clamp(max=n_r - 1)]
     kb = keys.to(torch.bfloat16)[rows.clamp(max=n_r - 1)].view(nb, LANE, e)
-    sc = _fma_chain(q[ids][:, :, None, :], kb[:, None, :, :])
+    sc = fma_chain(q[ids][:, :, None, :], kb[:, None, :, :])
     return torch.where(live.view(nb, 1, LANE), sc, NEG_INF)
 
 
@@ -323,7 +274,7 @@ def bucket_rescore(assign: torch.Tensor, queries: torch.Tensor,
     if keys.device.type == "cpu":
         return bucket_rescore_plain(assign, queries, keys, valid_mask)
     name = "bucket_rescore"
-    _check_qk(name, queries, keys)
+    queries, keys = check_qk(name, queries, keys)
     _check_cuda(name, assign=(assign, torch.int32, 2))
     nb, p_max = assign.shape
     n_r, e = keys.shape
@@ -333,7 +284,7 @@ def bucket_rescore(assign: torch.Tensor, queries: torch.Tensor,
     if nb != -(-n_r // LANE):
         raise ValueError(f"{name}: assign has {nb} buckets, the keys have "
                          f"{-(-n_r // LANE)}")
-    valid = _valid_u8(valid_mask, n_r, keys.device)
+    valid = valid_u8(valid_mask, n_r, keys.device)
     out = torch.empty((nb, p_max, LANE), dtype=torch.float32,
                       device=keys.device)
     if out.numel() == 0:
@@ -432,21 +383,25 @@ def bucketed_exact_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
     Returns ``(scores (Q, k) f32, indices (Q, k) int32)`` sorted descending.
     The scores are always exact; indices may differ from a full sort only
     under exact score ties. Slots beyond the valid rows hold ``(-inf, 0)``.
-    On the card ``k <= 128``, ``E <= 256`` and ``E % 8 == 0``.
+    Any ``k >= 1`` and any width. A pass takes at most 4,096 queries, and
+    fewer where their ``(Q, k * 128)`` f32 candidates would take more than
+    ``score_tile.pass_rows`` allows.
     """
     _check_k("bucketed_exact_topk", k)
     q_len = queries.shape[0]
     r_len = keys_n.shape[0]
-    if q_len > _Q_CHUNK:
-        outs = [bucketed_exact_topk(queries[i:i + _Q_CHUNK], keys_n, k,
-                                    valid_mask, p_max)
-                for i in range(0, q_len, _Q_CHUNK)]
+    chunk = pass_rows(min(q_len, _Q_CHUNK), 4 * k * LANE,
+                      device_memory(queries.device))
+    # bf16 rows padded to a multiple of 8 (zero columns add 0), once
+    q_in, k_in = bf16_rows(queries), bf16_rows(keys_n)
+    if q_len > chunk:
+        outs = [bucketed_exact_topk(q_in[i:i + chunk], k_in, k, valid_mask,
+                                    p_max)
+                for i in range(0, q_len, chunk)]
         return (torch.cat([o[0] for o in outs]),
                 torch.cat([o[1] for o in outs]))
     dev = queries.device
-    q_in = queries.to(torch.bfloat16).contiguous()
-    k_in = keys_n.to(torch.bfloat16).contiguous()
-    valid = _valid_u8(valid_mask, r_len, dev)
+    valid = valid_u8(valid_mask, r_len, dev)
     nb = -(-r_len // LANE)
     if nb < k:
         # tiny library: the dense exact path is already cheap

@@ -176,9 +176,10 @@ def _check_cuda(name: str, **tensors: tuple) -> None:
 
 
 def _check_width(name: str, d: int) -> None:
-    if d % 2 or not 0 < d <= 512:
-        raise ValueError(f"{name}: row width must be even and at most 512, "
-                         f"got {d}")
+    """Kernels A, B and I take any width: an odd one a column a load, a
+    wider one than 512 in column slices (csrc/rg_csr.cuh, csr_segment.cu)."""
+    if d < 1:
+        raise ValueError(f"{name}: row width must be at least 1, got {d}")
 
 
 def _csr_gather_scale(table: torch.Tensor, w: torch.Tensor,

@@ -8,6 +8,14 @@ device memory. On CPU tensors it runs :func:`fused_cosine_topk_plain`. The
 two add the same exact bf16 products in different orders, so their scores
 agree to a few f32 roundings, not bit for bit.
 
+Any width and any ``k``: rows whose width is not a multiple of 8 are
+copied into zero-padded bf16 rows (a zero column adds exactly 0 to every
+product), rows wider than 256 are walked in chunks of 128 columns, and a
+``k`` above the 128 entries of the kernel's lists takes the selection
+family instead (:func:`_select_path`): the ``(Q, R)`` scores of a chunk of
+queries by the same tensor-core tile (``score_tile.score_matrix``), then
+``select_topk.select_topk`` on them.
+
 Contract (both versions): scores ``(Q, k)`` f32 sorted descending and
 indices ``(Q, k)`` int32; rows with ``valid_mask`` False never surface;
 slots left over when fewer than ``k`` rows are valid hold ``(-3e38, 0)``;
@@ -21,15 +29,15 @@ from __future__ import annotations
 import torch
 
 from ragraph_tpu_torch import native
+from ragraph_tpu_torch.ops.score_tile import (
+    LANE, SMEM_ALIGN, SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, bf16_rows,
+    device_memory, pass_rows, ring_bytes, score_matrix)
+from ragraph_tpu_torch.ops.select_topk import select_topk
 
 NEG_INF = -3.0e38
-MAX_K = 128   # the running lists live in shared memory
-MAX_E = 256
-_BR = 128     # keys per tile (csrc/rg_mma.cuh kTileN)
+MAX_K = 128   # the running lists live in shared memory; a larger k takes
+              # the selection family
 _MAX_SPLITS = 32          # one per lane of the merge launch's warp
-_SMEM_BLOCK = 232_448     # shared memory one H100 block may ask for
-_SMEM_SM = 233_472        # shared memory of one H100 SM
-_SMEM_RESERVED = 1024     # taken by the runtime for each resident block
 
 
 def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
@@ -53,11 +61,9 @@ def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
 
 def _smem_bytes(bq: int, e: int, k: int) -> int:
     """Shared memory of one block of kernel C (``smem_bytes`` in
-    ``csrc/fused_retrieval.cu``): the alignment slack, the resident query
-    tile and two key tiles in 64-column swizzle atoms of the width padded to
-    16, and the ``(bq, k)`` lists."""
-    atoms = -(-(-(-e // 16) * 16) // 64)
-    return 1024 + (bq + 2 * _BR) * 128 * atoms + 8 * bq * k
+    ``csrc/fused_retrieval.cu``): the alignment slack, the ring of tiles
+    (:func:`score_tile.ring_bytes`) and the ``(bq, k)`` lists."""
+    return SMEM_ALIGN + ring_bytes(bq, e) + 8 * bq * k
 
 
 def _splits(n_q: int, n_r: int, e: int, k: int,
@@ -71,38 +77,35 @@ def _splits(n_q: int, n_r: int, e: int, k: int,
     resident beside the query blocks (two blocks of 128 queries or four of
     64 per SM, fewer where shared memory runs out), so the launch is one
     wave."""
-    n_tiles = -(-n_r // _BR)
+    n_tiles = -(-n_r // LANE)
     max_splits = min(_MAX_SPLITS, n_tiles)
-    bq = 128 if (_smem_bytes(128, e, k) <= _SMEM_BLOCK
+    bq = 128 if (_smem_bytes(128, e, k) <= SMEM_BLOCK
                  and -(-n_q // 128) * max_splits >= sms) else 64
     q_blocks = -(-n_q // bq)
     per_sm = min(256 // bq,
-                 _SMEM_SM // (_smem_bytes(bq, e, k) + _SMEM_RESERVED))
+                 SMEM_SM // (_smem_bytes(bq, e, k) + SMEM_RESERVED))
     splits = max(1, min(max_splits, per_sm * sms // q_blocks))
-    rows_per_split = -(-n_tiles // splits) * _BR
+    rows_per_split = -(-n_tiles // splits) * LANE
     return bq, -(-n_r // rows_per_split), rows_per_split
 
 
 def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
                       valid_mask: torch.Tensor | None = None):
     """Exact top-``k`` of already L2-normalised ``queries (Q, E)`` against
-    ``keys_n (R, E)``, both scored in bf16 (see module doc)."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_cosine_topk takes 1 <= k <= {MAX_K}, "
-                         f"got k={k}")
+    ``keys_n (R, E)``, both scored in bf16 (see module doc). Any ``k >= 1``
+    and any width."""
+    if k < 1:
+        raise ValueError(f"fused_cosine_topk takes k >= 1, got k={k}")
     if queries.device.type == "cpu":
         return fused_cosine_topk_plain(queries, keys_n, k, valid_mask)
     name = "fused_cosine_topk"
-    q = queries.to(torch.bfloat16).contiguous()
-    kk = keys_n.to(torch.bfloat16).contiguous()
+    if keys_n.dim() != 2 or queries.dim() != 2 \
+            or keys_n.shape[1] != queries.shape[1]:
+        raise ValueError(f"{name}: keys {tuple(keys_n.shape)} do not match "
+                         f"queries {tuple(queries.shape)}")
+    q, kk = bf16_rows(queries), bf16_rows(keys_n)
     n_q, e = q.shape
     n_r = kk.shape[0]
-    if kk.dim() != 2 or kk.shape[1] != e:
-        raise ValueError(f"{name}: keys {tuple(kk.shape)} do not match "
-                         f"queries {tuple(q.shape)}")
-    if e % 8 or not 0 < e <= MAX_E:
-        raise ValueError(f"{name}: width must be a multiple of 8 and at "
-                         f"most {MAX_E}, got {e}")
     for arg, t in (("queries", q), ("keys", kk)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {arg} on {t.device}, expected "
@@ -118,6 +121,8 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
     if n_r == 0 or n_q == 0:
         return (torch.full((n_q, k), NEG_INF, device=q.device),
                 torch.zeros((n_q, k), dtype=torch.int32, device=q.device))
+    if k > MAX_K:
+        return _select_path(q, kk, k, valid)
     out_s = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
     out_i = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
@@ -136,3 +141,21 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
     native.check(rc, name)
     native.LAUNCHES[name] += 1
     return out_s, out_i
+
+
+def _select_path(q: torch.Tensor, kk: torch.Tensor, k: int,
+                 valid: torch.Tensor | None):
+    """Kernel C's contract for ``k > MAX_K``: per pass of queries (as many
+    as :func:`score_tile.pass_rows` lets their score rows take), the
+    scores by the tensor-core tile C uses (bit for bit C's), then the
+    selection family on them."""
+    n_q, n_r = q.shape[0], kk.shape[0]
+    chunk = pass_rows(n_q, 4 * -(-n_r // LANE) * LANE, device_memory(q.device))
+    vals, idx = [], []
+    for i in range(0, n_q, chunk):
+        scores = score_matrix(kk, q[i:i + chunk], valid)
+        v, j = select_topk(scores, k, n_r)
+        vals.append(v)
+        idx.append(j)
+        del scores   # before the next pass allocates its own
+    return torch.cat(vals), torch.cat(idx)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from ragraph_tpu_torch import native
-from ragraph_tpu_torch.ops.bucket_topk import LANE, _check_qk, _fma_chain
+from ragraph_tpu_torch.ops.score_tile import (LANE, RESIDENT_E, check_qk,
+                                              fma_chain)
 from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, _check_cuda,
                                               _segment_ids, walk_plan,
                                               walk_plan_args)
@@ -57,7 +58,7 @@ def matmul_probe_plain(keys: torch.Tensor, queries: torch.Tensor,
     n_r = keys.shape[0]
     rows = torch.arange(-(-n_r // LANE), device=keys.device) * LANE + pick_row
     kb = keys.to(torch.bfloat16)[rows.clamp(max=max(n_r - 1, 0))]
-    sc = _fma_chain(kb[:, None, :], queries.to(torch.bfloat16)[None, :, :])
+    sc = fma_chain(kb[:, None, :], queries.to(torch.bfloat16)[None, :, :])
     return torch.where((rows < n_r)[:, None], sc, 0.0)
 
 
@@ -66,12 +67,15 @@ def matmul_probe(keys: torch.Tensor, queries: torch.Tensor,
     """``out[g, q] = keys[128·g + pick_row] · queries[q]``, ``(ceil(R/128),
     Q)`` f32, from bf16 ``keys (R, E)`` and ``queries (Q, E)``. On the card
     every one of the ``R·Q`` dot products is taken and one row in 128 is
-    written (kernel J)."""
+    written (kernel J), for rows of at most 256 values."""
     if keys.device.type == "cpu":
         return matmul_probe_plain(keys, queries, pick_row)
     name = "mm_probe"
     _check_pick(pick_row)
-    _check_qk(name, queries, keys)
+    queries, keys = check_qk(name, queries, keys)
+    if keys.shape[1] > RESIDENT_E:
+        raise ValueError(f"{name}: its tiles hold rows of at most "
+                         f"{RESIDENT_E} values, got {keys.shape[1]}")
     n_r, n_q = keys.shape[0], queries.shape[0]
     out = torch.empty((-(-n_r // LANE), n_q), dtype=torch.float32,
                       device=keys.device)

@@ -26,9 +26,9 @@ from ragraph_tpu_torch.ops.similarity import l2_normalize
 # Library size above which "auto" leaves the exact sort.
 AUTO_APPROX_THRESHOLD = 32_768
 
-# Largest width whose int8 dot products, summed in f32, are still exact
-# integers: 127 * 127 * E < 2**24.
-INT8_MAX_E = 1040
+# Widest slice whose int8 dot products, summed in f32, are still exact
+# integers: 127 * 127 * E < 2**24. Wider rows are scored a slice at a time.
+INT8_SLICE_E = 1040
 
 
 def _quantize_i8(x: torch.Tensor) -> torch.Tensor:
@@ -121,19 +121,13 @@ def _int8_topk(q: torch.Tensor, kk: torch.Tensor, k: int, valid_mask,
     """Int8-scored top-k, with an optional exact rescore of the candidates.
 
     ``q`` / ``kk`` are already L2-normalised (``kk`` may be int8 already).
-    The s8 x s8 -> s32 product of the JAX package is an f32 matmul of the
-    cast tables here: sums of products of values in [-127, 127] are exact
-    integers in f32 up to ``E = 1040``, and wider rows raise. Both
-    ``"approx"`` and ``"exact"`` take an exact ``torch.topk`` of the int8
-    scores (the TPU's approximate top-k has no GPU counterpart), so the
-    caller's method and recall target change nothing here.
+    The s8 x s8 -> s32 product of the JAX package is :func:`_int8_dot`
+    here. Both ``"approx"`` and ``"exact"`` take an exact ``torch.topk`` of
+    the int8 scores (the TPU's approximate top-k has no GPU counterpart), so
+    the caller's method and recall target change nothing here.
     """
-    if q.shape[1] > INT8_MAX_E:
-        raise ValueError(f"int8 scoring sums exactly in f32 only up to a "
-                         f"width of {INT8_MAX_E}, got {q.shape[1]}")
     ki = kk if kk.dtype == torch.int8 else _quantize_i8(kk)
-    scores = (_quantize_i8(q).float() @ ki.float().T) \
-        * (1.0 / (127.0 * 127.0))
+    scores = _int8_dot(_quantize_i8(q), ki) * (1.0 / (127.0 * 127.0))
     if valid_mask is not None:
         scores = torch.where(valid_mask[None, :].bool(), scores, -torch.inf)
     if not rescore_pad:
@@ -147,6 +141,22 @@ def _int8_topk(q: torch.Tensor, kk: torch.Tensor, k: int, valid_mask,
         sc = torch.where(valid_mask.bool()[cand], sc, -torch.inf)
     vals, pos = torch.topk(sc, k, dim=1)
     return vals, torch.gather(cand, 1, pos)
+
+
+def _int8_dot(qi: torch.Tensor, ki: torch.Tensor) -> torch.Tensor:
+    """The s32 products ``qi @ ki.T`` of two int8 tables, as f32 (the JAX
+    package's ``s32.astype(f32)``): f32 matmuls of slices of at most
+    ``INT8_SLICE_E`` columns, each an exact integer, added in int32 where
+    there is more than one slice."""
+    e = qi.shape[1]
+    if e <= INT8_SLICE_E:
+        return qi.float() @ ki.float().T
+    acc = None
+    for c in range(0, e, INT8_SLICE_E):
+        part = (qi[:, c:c + INT8_SLICE_E].float()
+                @ ki[:, c:c + INT8_SLICE_E].float().T).to(torch.int32)
+        acc = part if acc is None else acc.add_(part)
+    return acc.float()
 
 
 def topk_gather(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

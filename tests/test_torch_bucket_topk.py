@@ -12,6 +12,7 @@ from ragraph_tpu.ops import bucket_topk as jbt
 from ragraph_tpu.ops import topk as jtopk
 from ragraph_tpu_torch import ops as tops
 from ragraph_tpu_torch.ops import bucket_topk as tbt
+from ragraph_tpu_torch.ops import score_tile as tst
 from ragraph_tpu_torch.ops import topk as ttopk
 
 # About 2 f32 ulp at scores near 1. The port adds the exact bf16 products in
@@ -56,6 +57,12 @@ def _assert_topk_close(s, i, want_s, want_i, live=None):
     pytest.param("row", 17, (33, 250), id="row-k17"),
     pytest.param("row", 32, (10, 300), id="row-k32"),
     pytest.param("row", 33, (12, 21), id="row-k33-narrow"),
+    # k past the kernels' 128-entry lists (the selection family on the
+    # card), with ties, and fewer rows (columns) than k
+    pytest.param("column", 129, (300, 40), id="column-k129"),
+    pytest.param("column", 200, (150, 21), id="column-k200-fewer-rows"),
+    pytest.param("row", 129, (20, 400), id="row-k129"),
+    pytest.param("row", 200, (9, 150), id="row-k200-narrow"),
 ])
 def test_extraction_topk_matches_jax_with_ties(fn, k, shape):
     rng = np.random.default_rng(5)
@@ -224,18 +231,24 @@ def test_overflow_pairs_go_through_bucket_rescore(monkeypatch):
     (70, 1000, 64, 132),         # fewer blocks than SMs
     (1, 4097, 136, 132),
     (130, 2048, 8, 78),
+    (2048, 262_144, 1000, 132),  # rows in chunks of 128 columns
+    (5, 128_037, 512, 132),
 ])
 def test_bucket_max_plan_is_one_wave_over_every_bucket(n_q, n_r, e, sms):
     """Kernel D's plan covers every bucket once, fits shared memory and the
     SMs' resident blocks, and takes 128 queries a block where that leaves
     no SM idle."""
-    bq, ranges, per_range = tbt._bucket_max_plan(n_q, n_r, e, sms)
+    bq, ranges, per_range = tst.tile_plan(n_q, n_r, e, sms)
     nb = -(-n_r // 128)
     assert bq in (64, 128)
     assert (ranges - 1) * per_range < nb <= ranges * per_range
     # the resident query tile and two key tiles, 64-column atoms of the
-    # width padded to 16
-    smem = 1024 + (bq + 2 * 128) * 128 * -(-(-(-e // 16) * 16) // 64)
+    # width padded to 16; past 256 columns two stages of a 128-column query
+    # chunk and key chunk
+    if e > 256:
+        smem = 1024 + 2 * (bq + 128) * 128 * 2
+    else:
+        smem = 1024 + (bq + 2 * 128) * 128 * -(-(-(-e // 16) * 16) // 64)
     assert smem <= 232_448
     per_sm = min(256 // bq, 233_472 // (smem + 1024))
     assert -(-n_q // bq) * ranges <= max(per_sm * sms, -(-n_q // bq))
@@ -323,12 +336,54 @@ def test_bucketed_exact_topk_matches_jax(case):
     for row, row_live in zip(i, live):
         assert len(set(row[row_live])) == row_live.sum()
     # and against the dense sort of the same scores
-    dense = tbt._fma_chain(torch.from_numpy(q).bfloat16()[:, None, :],
-                           torch.from_numpy(keys).bfloat16()[None, :, :])
+    dense = tst.fma_chain(torch.from_numpy(q).bfloat16()[:, None, :],
+                          torch.from_numpy(keys).bfloat16()[None, :, :])
     if valid is not None:
         dense[:, ~torch.from_numpy(valid)] = -torch.inf
     ref = torch.sort(dense, dim=1, descending=True, stable=True).values
     np.testing.assert_array_equal(s, ref[:, :k].numpy())
+
+
+@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("e", [12, 100, 264])
+def test_bucketed_exact_topk_large_k_matches_jax(k, e):
+    """Every k and every width against the JAX package's kernels in
+    interpret mode, with a valid mask (at R = 2,100 both sides take their
+    dense branch: fewer buckets than k)."""
+    rng = np.random.default_rng(k * e)
+    q, keys = _unit(rng, 20, e), _unit(rng, 2100, e)
+    valid = np.arange(2100) % 7 != 3
+    want_s, want_i = jbt.bucketed_exact_topk(
+        jnp.asarray(q), jnp.asarray(keys), k, valid_mask=jnp.asarray(valid),
+        block_q=256, block_r=512, interpret=True)
+    s, i = tbt.bucketed_exact_topk(torch.from_numpy(q),
+                                   torch.from_numpy(keys), k,
+                                   valid_mask=torch.from_numpy(valid))
+    assert s.shape == i.shape == (20, k)
+    _assert_topk_close(s.numpy(), i.numpy(), want_s, want_i)
+    assert valid[i.numpy()].all()
+
+
+@pytest.mark.parametrize("e", [12, 100])
+def test_bucketed_exact_topk_large_k_through_the_buckets(e):
+    """k = 129 with at least k buckets (R = 128 k + 37): the port's path of
+    kernels D, E, F, G and its glue, with E and G past their 128-entry
+    lists. The JAX kernels in interpret mode take over 10 s here, so the
+    reference is JAX's ``cosine_topk(method="exact")`` on the bf16-rounded
+    rows: scores within TOL, indices apart only inside a tie."""
+    k, r_len = 129, 128 * 129 + 37
+    rng = np.random.default_rng(e)
+    q, keys = _unit(rng, 5, e), _unit(rng, r_len, e)
+    qb = torch.from_numpy(q).bfloat16().float().numpy()
+    kb = torch.from_numpy(keys).bfloat16().float().numpy()
+    want_s, want_i = jtopk.cosine_topk(
+        jnp.asarray(qb), jnp.asarray(kb), k, queries_normalized=True,
+        keys_normalized=True, method="exact")
+    s, i = tbt.bucketed_exact_topk(torch.from_numpy(q),
+                                   torch.from_numpy(keys), k)
+    assert -(-r_len // tbt.LANE) >= k       # the bucket path, not the dense
+    _assert_topk_close(s.numpy(), i.numpy(), want_s, want_i)
+    assert all(len(set(row)) == k for row in i.numpy())
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -377,9 +432,9 @@ def test_topk_rejects_an_empty_axis(fn, shape):
 def test_limits_and_exports():
     x = torch.zeros(4, 8)
     for fn in (tbt.column_topk, tbt.row_topk):
-        with pytest.raises(ValueError, match="k <= 128"):
-            fn(x, tbt.MAX_K + 1)
-    with pytest.raises(ValueError, match="k <= 128"):
+        with pytest.raises(ValueError, match="k >= 1"):
+            fn(x, 0)
+    with pytest.raises(ValueError, match="k >= 1"):
         tbt.bucketed_exact_topk(x, x, 0)
     with pytest.raises(ValueError, match="valid_mask"):
         tbt.bucketed_exact_topk(x, torch.zeros(300, 8), 2,

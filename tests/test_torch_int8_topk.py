@@ -171,12 +171,34 @@ def test_int8_guards_match_jax(data):
             ttopk.cosine_topk(tq, ti8 if use_i8 else tk, K,
                               rescore_keys=tk if with_rescore else None,
                               **kw)
-    # the port's own limit: f32 sums of int8 products are exact to E = 1040
-    wide = torch.zeros(2, ttopk.INT8_MAX_E + 8)
-    with pytest.raises(ValueError, match="1040"):
-        ttopk.cosine_topk(wide, wide, 1, score_dtype="int8", method="exact")
-    assert 127 * 127 * ttopk.INT8_MAX_E < 2 ** 24 \
-        <= 127 * 127 * (ttopk.INT8_MAX_E + 1)
+    # a slice of the port's f32 sums of int8 products is exact to E = 1040
+    assert 127 * 127 * ttopk.INT8_SLICE_E < 2 ** 24 \
+        <= 127 * 127 * (ttopk.INT8_SLICE_E + 1)
+
+
+@pytest.mark.parametrize("e", [1100, 2500])
+def test_int8_wide_rows_match_jax(e):
+    """Rows wider than the 1,040 columns whose int8 products are sure to
+    sum exactly in f32: the port adds the slices' exact sums in int32, as
+    the JAX package's s32 product does, so the scores are its bit for bit
+    (positive rows and three keys equal to queries: large sums)."""
+    rng = np.random.default_rng(e)
+    q = np.abs(rng.normal(size=(6, e))).astype(np.float32)
+    keys = np.abs(rng.normal(size=(300, e))).astype(np.float32)
+    keys[:3] = q[:3]
+    want_s, want_i = jtopk.cosine_topk(jnp.asarray(q), jnp.asarray(keys), 5,
+                                       score_dtype="int8", method="exact")
+    s, i = ttopk.cosine_topk(torch.from_numpy(q), torch.from_numpy(keys), 5,
+                             score_dtype="int8", method="exact")
+    np.testing.assert_array_equal(s.numpy(), np.asarray(want_s))
+    mism = i.numpy() != np.asarray(want_i)
+    assert (s.numpy()[mism] == np.asarray(want_s)[mism]).all()
+    qi = ttopk._quantize_i8(ttopk.l2_normalize(torch.from_numpy(q)))
+    ki = ttopk.quantize_keys_i8(torch.from_numpy(keys))
+    ints = qi.long() @ ki.long().T
+    assert int(ints.max()) >= 2 ** 13
+    np.testing.assert_array_equal(
+        ttopk._int8_dot(qi, ki).numpy(), ints.float().numpy())
 
 
 def test_int8_auto_above_the_threshold(data, monkeypatch):

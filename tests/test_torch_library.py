@@ -344,6 +344,39 @@ def test_retrieve_semantic(fill):
         _close(g, w, 1e-7)
 
 
+@pytest.mark.parametrize("hidden", [264, 100])
+def test_retrieve_semantic_wide_rows(hidden, monkeypatch):
+    """``retrieve`` at widths the card's kernel C takes in chunks of 128
+    columns (264) or on zero-padded rows (100), above the (lowered) size at
+    which both packages leave the exact sort for the approximate tier: the
+    port's kernel C against the JAX package's ``approx_max_k``. Each query
+    has four planted neighbours 0.1 apart in score, so bf16 and f32 scores
+    pick the same rows in the same order."""
+    from ragraph_tpu.ops import topk as jtopk
+    from ragraph_tpu_torch.ops import topk as ttopk
+    monkeypatch.setattr(jtopk, "AUTO_APPROX_THRESHOLD", 100)
+    monkeypatch.setattr(ttopk, "AUTO_APPROX_THRESHOLD", 100)
+    rng = np.random.default_rng(hidden)
+    jl = _jax_lib(rng, 300, 260, e=hidden)
+    q, _ = _queries(rng, q=5, e=hidden)
+    qn = q / np.linalg.norm(q, axis=1, keepdims=True)
+    keys = np.array(jl.keys)
+    for r in range(5):
+        for j, cos in enumerate((0.9, 0.8, 0.7, 0.6)):
+            noise = rng.normal(size=hidden)
+            noise -= noise @ qn[r] * qn[r]
+            keys[10 * r + j] = cos * qn[r] + np.sqrt(1 - cos ** 2) \
+                * noise / np.linalg.norm(noise)
+    jl = dataclasses.replace(jl, keys=jnp.asarray(keys))
+    tl = _to_port(jl)
+    jcfg, tcfg = (m.LibraryConfig(retrieve_num=4) for m in (jlib, tlib))
+    want = jlib.retrieve(jl, jnp.asarray(q), jcfg)
+    got = tlib.retrieve(tl, _t(q), tcfg)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g, w, 1e-7)
+
+
 def test_retrieve_structure_weighted():
     rng = np.random.default_rng(5)
     jl = _jax_lib(rng, 64, 50)

@@ -33,7 +33,7 @@ from ragraph_tpu.ops import bucket_topk as jbt
 from ragraph_tpu.ops import pallas_segment as jps
 from ragraph_tpu_torch.bench import (csr_walk, exact_phases, main_path,
                                      onehot_gather, packed_table_gather,
-                                     prefix_scan)
+                                     prefix_scan, score_tile)
 from ragraph_tpu_torch.ops import bucket_topk as tbt
 from ragraph_tpu_torch.ops import csr_segment as tcs
 from ragraph_tpu_torch.ops import probes
@@ -339,6 +339,7 @@ BENCHES = {
     "main_path": (main_path, ("users", "items", "edges", "topk_R", "k")),
     "csr_walk": (csr_walk, ("N", "E", "D", "degrees")),
     "prefix_scan": (prefix_scan, ("shapes",)),
+    "score_tile": (score_tile, ("Q", "R", "widths", "k", "bound_ms")),
 }
 TIMES = {
     "exact_phases": ("latency", "throughput"),
@@ -350,6 +351,8 @@ TIMES = {
                   "exact_topk"),
     "csr_walk": ("uniform", "skewed", "main_path"),
     "prefix_scan": ("f32_excl_small", "bf16_incl_small"),
+    "score_tile": ("C_E12_k10", "D_E12", "C_E264_k10", "D_E264",
+                   "score_matrix_E264"),
 }
 
 

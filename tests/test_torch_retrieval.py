@@ -11,6 +11,7 @@ from ragraph_tpu.ops import pallas_retrieval as jret
 from ragraph_tpu.ops import similarity as jsim
 from ragraph_tpu.ops import topk as jtopk
 from ragraph_tpu_torch.ops import fused_retrieval as tret
+from ragraph_tpu_torch.ops import score_tile as tst
 from ragraph_tpu_torch.ops import similarity as tsim
 from ragraph_tpu_torch.ops import topk as ttopk
 
@@ -85,10 +86,69 @@ def test_fused_cosine_topk_ties_keep_the_lowest_indices():
                                   i.numpy())
 
 
-def test_fused_cosine_topk_rejects_large_k():
+@pytest.mark.parametrize("k", [129, 300])
+@pytest.mark.parametrize("e", [12, 100, 264])
+def test_fused_cosine_topk_large_k_matches_jax(k, e):
+    """Every k and every width: k above the kernel's 128-entry lists (the
+    selection family on the card) and widths that are not a multiple of 8
+    or pass 256 (padded rows, chunks of 128 columns on the card), with a
+    valid mask, against the TPU kernel in interpret mode."""
+    rng = np.random.default_rng(k + e)
+    q_len, r_len = 20, 2100
+    q, keys = _unit(rng, q_len, e), _unit(rng, r_len, e)
+    valid = rng.random(r_len) < 0.9
+    want_s, want_i = jret.fused_cosine_topk(
+        jnp.asarray(q), jnp.asarray(keys), k, valid_mask=jnp.asarray(valid),
+        block_q=8, block_r=128, interpret=True)
+    s, i = tret.fused_cosine_topk(torch.from_numpy(q),
+                                  torch.from_numpy(keys), k,
+                                  valid_mask=torch.from_numpy(valid))
+    assert s.shape == i.shape == (q_len, k)
+    _assert_topk_equal(s, i, want_s, want_i)
+    assert valid[i.numpy()].all()
+
+
+@pytest.mark.parametrize("k,r_len,n_valid", [(300, 150, None),
+                                             (200, 600, 129)])
+def test_fused_cosine_topk_large_k_past_the_rows(k, r_len, n_valid):
+    """k above R, or above the valid rows: both sides fill the slots past
+    them with (-3e38, 0)."""
+    rng = np.random.default_rng(r_len)
+    q, keys = _unit(rng, 6, 100), _unit(rng, r_len, 100)
+    valid = None
+    if n_valid is not None:
+        valid = np.zeros(r_len, bool)
+        valid[rng.permutation(r_len)[:n_valid]] = True
+    want_s, want_i = jret.fused_cosine_topk(
+        jnp.asarray(q), jnp.asarray(keys), k,
+        valid_mask=None if valid is None else jnp.asarray(valid),
+        block_q=8, block_r=128, interpret=True)
+    s, i = tret.fused_cosine_topk(
+        torch.from_numpy(q), torch.from_numpy(keys), k,
+        valid_mask=None if valid is None else torch.from_numpy(valid))
+    _assert_topk_equal(s, i, want_s, want_i)
+    n_live = r_len if n_valid is None else n_valid
+    assert np.all(s.numpy()[:, n_live:] == np.float32(tret.NEG_INF))
+    assert np.all(i.numpy()[:, n_live:] == 0)
+
+
+def test_fused_cosine_topk_rejects_k_below_one():
     x = torch.zeros(2, 8)
-    with pytest.raises(ValueError, match="k <= 128"):
-        tret.fused_cosine_topk(x, x, tret.MAX_K + 1)
+    with pytest.raises(ValueError, match="k >= 1"):
+        tret.fused_cosine_topk(x, x, 0)
+
+
+def test_bf16_rows_pads_to_a_multiple_of_8():
+    """The kernels' 16-byte row loads: a width that is not a multiple of 8
+    is copied into zero-padded bf16 rows (a zero column adds 0 to every
+    product); contiguous bf16 rows of such a width are taken as they are."""
+    x = torch.randn(5, 12)
+    p = tst.bf16_rows(x)
+    assert p.shape == (5, 16) and p.dtype == torch.bfloat16
+    assert torch.equal(p[:, :12], x.bfloat16()) and not p[:, 12:].any()
+    y = torch.randn(4, 16).bfloat16()
+    assert tst.bf16_rows(y) is y
+    assert tst.bf16_rows(torch.randn(3, 1)).shape == (3, 8)
 
 
 @pytest.mark.parametrize("seed,k,n_valid", [
@@ -137,19 +197,21 @@ def test_fused_tile_plan_covers_the_keys(n_q, n_r):
     """Kernel C's tile plan: at most 32 ranges, each a whole number of
     128-key tiles and none empty, that together cover R; a block that fits
     shared memory."""
-    for e, k in ((64, 10), (256, 4), (8, 1), (136, 50), (256, 128)):
+    for e, k in ((64, 10), (256, 4), (8, 1), (136, 50), (256, 128),
+                 (264, 10), (512, 4), (1000, 128)):
         bq, splits, rows = tret._splits(n_q, n_r, e, k, SMS)
         assert bq in (64, 128)
-        assert rows > 0 and rows % tret._BR == 0
+        assert rows > 0 and rows % tst.LANE == 0
         assert 1 <= splits <= 32
         assert (splits - 1) * rows < n_r <= splits * rows
-        assert tret._smem_bytes(bq, e, k) <= tret._SMEM_BLOCK
+        assert tret._smem_bytes(bq, e, k) <= tst.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("sms", [SMS, 114])
 @pytest.mark.parametrize("n_q,n_r,e,k", [
     (2048, 262_144, 64, 10),    # an edge refresh chunk
     (384, 65_536, 256, 4),      # a node retrieve
+    (384, 65_536, 512, 4),      # a node retrieve at --hidden 512
 ])
 def test_fused_tile_plan_fills_the_card_in_one_wave(sms, n_q, n_r, e, k):
     """At the paths' shapes the blocks reach every SM and all fit resident
@@ -157,8 +219,8 @@ def test_fused_tile_plan_fills_the_card_in_one_wave(sms, n_q, n_r, e, k):
     memory runs out)."""
     bq, splits, _ = tret._splits(n_q, n_r, e, k, sms)
     blocks = -(-n_q // bq) * splits
-    per_sm = min(256 // bq, tret._SMEM_SM
-                 // (tret._smem_bytes(bq, e, k) + tret._SMEM_RESERVED))
+    per_sm = min(256 // bq, tst.SMEM_SM
+                 // (tret._smem_bytes(bq, e, k) + tst.SMEM_RESERVED))
     assert sms <= blocks <= per_sm * sms
 
 
@@ -220,6 +282,28 @@ def test_cosine_topk_dispatch(monkeypatch):
     torch.testing.assert_close(s[:, :2], s_exact[:, :2], rtol=0, atol=5e-2)
     vals = torch.arange(64 * 2, dtype=torch.float32).reshape(64, 2)
     assert ttopk.topk_gather(vals, torch.tensor([[1, 3]])).shape == (1, 2, 2)
+
+
+@pytest.mark.parametrize("k", [129, 200])
+def test_cosine_topk_approx_wide_rows_matches_jax(k, monkeypatch):
+    """``cosine_topk`` above the (lowered) threshold at E = 100: the port's
+    ``"approx"`` answers exactly through kernel C's contract (the selection
+    family on the card), the JAX package's ``approx_max_k`` (exact on the
+    CPU)."""
+    rng = np.random.default_rng(k)
+    q = rng.normal(size=(9, 100)).astype(np.float32)
+    keys = rng.normal(size=(700, 100)).astype(np.float32)
+    monkeypatch.setattr(ttopk, "AUTO_APPROX_THRESHOLD", 500)
+    monkeypatch.setattr(jtopk, "AUTO_APPROX_THRESHOLD", 500)
+    want_s, want_i = jtopk.cosine_topk(jnp.asarray(q), jnp.asarray(keys), k)
+    s, i = ttopk.cosine_topk(torch.from_numpy(q), torch.from_numpy(keys), k)
+    # 2e-2: bf16 scores (the port) against f32 scores of unit rows (JAX);
+    # neighbours whose scores differ by less trade places, and a few trade
+    # places with the first row past the k-th
+    np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=0,
+                               atol=2e-2)
+    for got, want in zip(i.numpy(), np.asarray(want_i)):
+        assert len(set(got) & set(want)) >= 0.95 * k
 
 
 def test_similarity_matches_jax():

@@ -47,6 +47,9 @@ def _graph(seed, n_nodes, n_edges, d, hub=False):
 
 
 GRAPHS = [(96, 600, 16, False), (50, 1001, 64, True), (7, 3, 8, False)]
+# an odd width, and one past 512 columns (kernels A and B walk it in column
+# slices on the card)
+WIDE_GRAPHS = [(40, 300, 65, True), (30, 200, 640, False)]
 
 
 def _jax_layer(g, bf16, emb=None):
@@ -84,7 +87,32 @@ def test_gather_scale_segsum_matches_jax(n_nodes, n_edges, d, hub, bf16):
     np.testing.assert_allclose(emb.grad.numpy(), np.asarray(want_grad), **tol)
 
 
-@pytest.mark.parametrize("n_nodes,n_edges,d,hub", GRAPHS)
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("n_nodes,n_edges,d,hub", WIDE_GRAPHS)
+def test_gather_scale_segsum_wide_rows_match_jax(n_nodes, n_edges, d, hub,
+                                                 bf16):
+    """Kernel A's function at an odd width and past 512 columns, forward
+    and backward. The f32 backward is held to float64 sums of the same
+    terms instead of the JAX kernel: at 640 columns its prefix difference
+    strays by up to 1.5e-5 from the direct sum (the f32 note above)."""
+    g = _graph(5, n_nodes, n_edges, d, hub)
+    tol = BF16_TOL if bf16 else F32_TOL
+    want, vjp = jax.vjp(_jax_layer(g, bf16), jnp.asarray(g["emb"]))
+    emb = torch.from_numpy(g["emb"]).requires_grad_(True)
+    got = tseg.gather_scale_segsum(emb, *_torch_args(g), bf16=bf16)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+    ct = np.random.default_rng(6).normal(size=want.shape).astype(np.float32)
+    got.backward(torch.from_numpy(ct))
+    if bf16:
+        (want_grad,) = vjp(jnp.asarray(ct))
+    else:
+        want_grad = np.zeros(g["emb"].shape)
+        np.add.at(want_grad, g["send"],
+                  ct[g["recv"]].astype(np.float64) * g["w"][:, None])
+    np.testing.assert_allclose(emb.grad.numpy(), np.asarray(want_grad), **tol)
+
+
+@pytest.mark.parametrize("n_nodes,n_edges,d,hub", GRAPHS + WIDE_GRAPHS)
 def test_sorted_segment_sum_grad_matches_jax(n_nodes, n_edges, d, hub):
     g = _graph(3, n_nodes, n_edges, d, hub)
     msgs = g["emb"][g["send"]] * g["w"][:, None]
