@@ -116,7 +116,7 @@ Phases (any failure exits non-zero):
    recall@10 against the exact tier (kernels D-G), beside kernel C's brute
    force (its recall and its scores against the exact tier's); (c)
    ``cli.edge finetune --pre-model-path x.pt`` from a reference-style
-   ``.pt`` with its run log, the ``phase()`` totals, and ``op_profile`` of
+   ``.pt`` with its run log, the span totals, and ``op_profile`` of
    one pretrain step listing kernel A's launches.
 
 14. the multi-device paths, after phase 13, with every rank on this card
@@ -3712,7 +3712,7 @@ def phase_host_data(dev, ds, graph):
 
     def timed(name, fn):
         t0 = time.perf_counter()
-        with profiling.phase(name):
+        with profiling.span(name):
             r = fn()
         out[f"{name}_s"] = time.perf_counter() - t0
         return r
@@ -3846,7 +3846,7 @@ def phase_ivf(dev):
     out = {"keys_s": time.perf_counter() - t0}
 
     t0 = time.perf_counter()
-    with profiling.phase("ivf_build"):
+    with profiling.span("ivf_build"):
         index = build_ivf(keys_n, torch.Generator(dev).manual_seed(SEED + 31),
                           num_clusters=IVF_P, capacity=IVF_CAP,
                           iters=IVF_ITERS, normalized=True)
@@ -3858,7 +3858,7 @@ def phase_ivf(dev):
     if valid + dropped != IVF_R:
         fail(f"13b: {valid} indexed + {dropped} dropped != {IVF_R}")
 
-    with profiling.phase("ivf_search"):
+    with profiling.span("ivf_search"):
         s_ivf, ivf_ids = ivf_search(index, queries, IVF_K, nprobe=IVF_NPROBE)
         out["ivf_search_ms"] = cuda_ms(lambda: ivf_search(
             index, queries, IVF_K, nprobe=IVF_NPROBE), reps=10, warmup=2)
@@ -3909,7 +3909,7 @@ def phase_ivf(dev):
 
 def phase_utilities(dev, trainer, params):
     """13c: ``cli.edge finetune`` from a reference-style ``.pt`` on the card,
-    its run log, the ``phase()`` totals, and ``op_profile`` of one pretrain
+    its run log, the span totals, and ``op_profile`` of one pretrain
     step listing kernel A's launch."""
     import glob
 
@@ -3919,16 +3919,20 @@ def phase_utilities(dev, trainer, params):
     from ragraph_tpu_torch.cli import edge as edge_cli
     from ragraph_tpu_torch.train import profiling
     print("phase 13c: cli.edge finetune --pre-model-path x.pt, run log, "
-          "phase totals, op_profile", flush=True)
+          "span totals, op_profile", flush=True)
     with tempfile.TemporaryDirectory() as d:
         tables = xavier_tables(np.random.default_rng(SEED + 40), 64, 128, D)
         pt = os.path.join(d, "x.pt")
         torch.save({"state_dict": {f"{k}.weight": torch.from_numpy(v)
                                    for k, v in tables.items()}}, pt)
-        with profiling.phase("cli_finetune_pt"):
+        # the span's totals are recorded under a profiler (CPU activity)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]), \
+                profiling.span("cli_finetune_pt"):
             res = edge_cli.main(["finetune", "--data-path", "SYNTH",
                                  "--batch-size", "128", "--epochs", "3",
                                  "--pre-model-path", pt, "--save-dir", d])
+        totals = profiling.phase_totals()
         logs = glob.glob(os.path.join(d, "train_log_*.txt"))
         if not np.isfinite(res.recalls).all() or len(res.recalls) != 4:
             fail(f"13c: finetune from .pt gave recalls {res.recalls}")
@@ -3944,7 +3948,7 @@ def phase_utilities(dev, trainer, params):
         min_ms=0.0)
     a_rows = [r for r in rows if "walk_kernel" in r["name"]]
     print(json.dumps({"op_profile_top": rows[:8], "kernel_a_rows": a_rows,
-                      "phase_totals_s": profiling.phase_totals(),
+                      "phase_totals_s": totals,
                       "cli_recalls": res.recalls}), flush=True)
     if not a_rows or any(r["type"] != "kernel" for r in a_rows):
         fail("13c: op_profile of a pretrain step lists no launch of kernel "

@@ -64,6 +64,7 @@ from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
 from ragraph_tpu_torch.ops.topk import (cosine_topk, quantize_keys_i8,
                                         topk_gather)
 from ragraph_tpu_torch.rag.augmentation import augment_features
+from ragraph_tpu_torch.train.profiling import span
 
 # _fuse_rag leaves the (chunk, k, E) index gather for the k-th-score
 # threshold and a membership matmul when k * emb_size exceeds this, as in
@@ -481,14 +482,17 @@ class TemporalLightGCN:
         the RAG fusion, both drawing from ``generator``.
         """
         g = self.graph if graph is None else graph
-        weights, w_send, impl = self._edge_weights(
-            g, edge_mask, edge_mask_send, time_scale=time_scale,
-            max_time_step=max_time_step)
+        with span("edge_weights"):
+            weights, w_send, impl = self._edge_weights(
+                g, edge_mask, edge_mask_send, time_scale=time_scale,
+                max_time_step=max_time_step)
         u, it = self._effective_tables(params, generator, training)
         all_emb = self._gate(params, torch.cat([u, it], dim=0), generator,
                              training)
 
-        layers = self._propagate_layers(g, all_emb, weights, w_send, impl)
+        with span("propagate"):
+            layers = self._propagate_layers(g, all_emb, weights, w_send,
+                                            impl)
         res_emb = sum(layers)
 
         res_src = (resources if resources is not None
@@ -535,7 +539,7 @@ class TemporalLightGCN:
         """
         cfg = self.cfg
         add_noise = cfg.use_noise and training and self.phase == "finetune"
-        with torch.no_grad():
+        with span("retrieve"), torch.no_grad():
             rag_emb = self._retrieved_mean(query_emb.detach(), add_noise,
                                            generator, resources)
         return (1.0 - cfg.retrieve_weight) * res_emb \
@@ -662,17 +666,20 @@ class TemporalLightGCN:
         g = self.graph if graph is None else graph
         users, pos_items, neg_items = (t.long() for t in batch)
         keep = 1.0 - self.cfg.edge_dropout
-        mask, mask_send = (edge_masks if edge_masks is not None
-                           else self._drop_masks(generator, g, keep))
+        if edge_masks is None:
+            with span("edge_weights"):
+                edge_masks = self._drop_masks(generator, g, keep)
+        mask, mask_send = edge_masks
         user_emb, item_emb = self.forward(
             params, generator=generator, training=True, edge_mask=mask,
             edge_mask_send=mask_send, time_scale=1.0 / keep, graph=g,
             resources=resources)
-        rec = bpr_loss(user_emb[users], item_emb[pos_items],
-                       item_emb[neg_items])
-        u_t, i_t = self._effective_tables(params, None, False)
-        reg = self.cfg.weight_decay * reg_loss_emb(u_t, i_t, users,
-                                                   pos_items, neg_items)
+        with span("loss"):
+            rec = bpr_loss(user_emb[users], item_emb[pos_items],
+                           item_emb[neg_items])
+            u_t, i_t = self._effective_tables(params, None, False)
+            reg = self.cfg.weight_decay * reg_loss_emb(u_t, i_t, users,
+                                                       pos_items, neg_items)
         return rec + reg, {"rec_loss": rec, "reg_loss": reg}
 
     # -- serving -----------------------------------------------------------
@@ -681,9 +688,10 @@ class TemporalLightGCN:
     def generate(self, params, generator: torch.Generator | None = None,
                  max_time_step=None, graph=None, resources=None):
         """Full-graph embeddings, no dropout."""
-        return self.forward(params, generator=generator, training=False,
-                            max_time_step=max_time_step, graph=graph,
-                            resources=resources)
+        with span("generate"):
+            return self.forward(params, generator=generator, training=False,
+                                max_time_step=max_time_step, graph=graph,
+                                resources=resources)
 
     @staticmethod
     def rating(user_emb, item_emb):

@@ -4,13 +4,17 @@
 The ``(B, I)`` rating, the history mask and the top-k run on the device;
 the ragged ground-truth bookkeeping stays in numpy on the host. The top-k
 is exact at every catalog size (the TPU's approximate top-k above 32k items
-has no GPU counterpart).
+has no GPU counterpart). Under a profiler recording an evaluation is span
+``evaluate``, holding ``eval.history`` and ``eval.score`` for each user
+batch, ``eval.fetch`` (the host's wait for the top-k) and ``eval.hits``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ragraph_tpu_torch.train.profiling import span
 
 
 def _rate_and_topk(user_emb_batch: torch.Tensor, item_emb: torch.Tensor,
@@ -92,6 +96,12 @@ class RankingEvaluator:
     def evaluate(self, user_emb, item_emb, test_user_dict, user_hist_dict,
                  users=None):
         """Returns {metric: np.array over ks} averaged over test users."""
+        with span("evaluate"):
+            return self._evaluate(user_emb, item_emb, test_user_dict,
+                                  user_hist_dict, users)
+
+    def _evaluate(self, user_emb, item_emb, test_user_dict, user_hist_dict,
+                  users):
         if users is None:
             users = list(test_user_dict.keys())
         num_users = len(users)
@@ -106,33 +116,38 @@ class RankingEvaluator:
         for s in range(0, num_users, self.eval_batch_size):
             batch_users = users[s:s + self.eval_batch_size]
             ids = torch.from_numpy(np.asarray(batch_users, np.int64)).to(dev)
-            rows, cols = _pad_history(batch_users, user_hist_dict, num_items)
-            topks.append(_rate_and_topk(
-                user_emb[ids], item_emb, torch.from_numpy(rows).to(dev),
-                torch.from_numpy(cols).to(dev), max_k))
-        all_topk = torch.cat(topks, dim=0).cpu().numpy()
+            with span("eval.history"):
+                rows, cols = _pad_history(batch_users, user_hist_dict,
+                                          num_items)
+            with span("eval.score"):
+                topks.append(_rate_and_topk(
+                    user_emb[ids], item_emb, torch.from_numpy(rows).to(dev),
+                    torch.from_numpy(cols).to(dev), max_k))
+        with span("eval.fetch"):
+            all_topk = torch.cat(topks, dim=0).cpu().numpy()
 
-        hits = np.zeros((num_users, max_k), np.float32)
-        test_lens = np.zeros(num_users, np.float32)
-        for r, u in enumerate(users):
-            gt = set(test_user_dict[int(u)])
-            test_lens[r] = len(gt)
-            hits[r] = [c in gt for c in all_topk[r].tolist()]
+        with span("eval.hits"):
+            hits = np.zeros((num_users, max_k), np.float32)
+            test_lens = np.zeros(num_users, np.float32)
+            for r, u in enumerate(users):
+                gt = set(test_user_dict[int(u)])
+                test_lens[r] = len(gt)
+                hits[r] = [c in gt for c in all_topk[r].tolist()]
 
-        for ki, k in enumerate(self.ks):
+            for ki, k in enumerate(self.ks):
+                for m in self.metrics:
+                    if m == "recall":
+                        result[m][ki] = recall_at_k(hits, test_lens, k)
+                    elif m == "ndcg":
+                        result[m][ki] = ndcg_at_k(hits, test_lens, k)
+                    elif m == "precision":
+                        result[m][ki] = precision_at_k(hits, k)
+                    elif m == "mrr":
+                        result[m][ki] = mrr_at_k(hits, k,
+                                                 compat=self.mrr_compat)
+
             for m in self.metrics:
-                if m == "recall":
-                    result[m][ki] = recall_at_k(hits, test_lens, k)
-                elif m == "ndcg":
-                    result[m][ki] = ndcg_at_k(hits, test_lens, k)
-                elif m == "precision":
-                    result[m][ki] = precision_at_k(hits, k)
-                elif m == "mrr":
-                    result[m][ki] = mrr_at_k(hits, k,
-                                             compat=self.mrr_compat)
-
-        for m in self.metrics:
-            result[m] = result[m] / num_users
+                result[m] = result[m] / num_users
         return result
 
     def evaluate_grouped(self, user_emb, item_emb, test_user_dict,

@@ -5,13 +5,17 @@ consumer, so the trainer's batch making (the shuffle and the C++ negative
 sampler, which releases the interpreter lock) overlaps the device's step.
 The items, and their order, are those of the wrapped iterator: the producer
 is the same generator, only ahead. The thread makes host data only; copies
-to the device stay with the consumer.
+to the device stay with the consumer. Under a profiler recording the
+consumer's wait is span ``feed.wait``, and counters ``feed.items`` and
+``feed.empty`` count the items taken and those the queue did not yet hold.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+
+from ragraph_tpu_torch.train.profiling import count, span
 
 _END = object()
 
@@ -57,13 +61,19 @@ class PrefetchIterator:
     def __next__(self):
         if self._done:
             raise StopIteration
-        item = self._queue.get()
+        with span("feed.wait"):
+            try:
+                item, empty = self._queue.get_nowait(), 0
+            except queue.Empty:
+                item, empty = self._queue.get(), 1
         if item is _END:
             self._done = True
             self._thread.join()
             if self._err is not None:
                 raise self._err
             raise StopIteration
+        count("feed.items")
+        count("feed.empty", empty)
         return item
 
     def close(self) -> None:

@@ -1,9 +1,10 @@
 """Profiling and numerical-sanity hooks (counterpart of
 ``ragraph_tpu/train/profiling.py``).
 
-- :func:`phase`: a named wall-clock timer that also opens a
-  ``torch.profiler.record_function`` range, so phases show in traces;
-- :func:`annotate`: the same range around every call of a function;
+- :func:`span` / :func:`count`: the port's spans and counters, recorded
+  only while a ``torch.profiler`` run is on; :func:`recorded` returns the
+  latest recording, :func:`phase_totals` its host seconds by name; every
+  garbage collection under a recording is a span too (``gc``);
 - :func:`start_trace` / :func:`stop_trace`: a ``torch.profiler`` capture
   written as a Chrome trace;
 - :func:`op_profile`: per-op self-times of a function from
@@ -16,50 +17,167 @@
 from __future__ import annotations
 
 import contextlib
-import functools
+import dataclasses
+import gc
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
-_PHASE_TIMES: dict[str, float] = {}
 _TRACE: dict = {}
 
+# Spans and counters. Tracing is on exactly while a torch.profiler run
+# records (the one check below); the store holds the latest recording.
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_PREFIX = "rg."
 
-@contextlib.contextmanager
-def phase(name: str, log=None):
-    """Time the block on the host clock and add it to the phase's total;
-    ``log`` gets one line with both."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-    dt = time.perf_counter() - t0
-    _PHASE_TIMES[name] = _PHASE_TIMES.get(name, 0.0) + dt
-    if log is not None:
-        log(f"[phase] {name}: {dt:.3f}s (total {_PHASE_TIMES[name]:.3f}s)")
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span: its name, the enclosing span's name on its thread
+    (``None`` at the top), its host seconds and, where it ran with a CUDA
+    device, its device seconds: from the device reaching the first work
+    enqueued inside the span to the device finishing the last."""
+    name: str
+    parent: str | None
+    host_s: float
+    device_s: float | None = None
+
+
+@dataclasses.dataclass
+class Recording:
+    """The spans (:class:`SpanRecord`, in the order they closed) and the
+    counters of one profiler recording."""
+    spans: list = dataclasses.field(default_factory=list)
+    counts: dict = dataclasses.field(default_factory=dict)
+    # (record, start event, end event) whose device seconds are unread
+    pending: list = dataclasses.field(default_factory=list)
+
+
+_store = Recording()
+_stale = False       # a span saw tracing off: the next recording starts anew
+_lock = threading.Lock()
+_local = threading.local()
+
+
+def _recording() -> Recording:
+    global _store, _stale
+    if _stale:
+        with _lock:
+            if _stale:
+                _store, _stale = Recording(), False
+    return _store
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "parent", "range", "events", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = _stack()
+        self.parent = stack[-1] if stack else None
+        stack.append(self.name)
+        self.range = torch.profiler.record_function(_PREFIX + self.name)
+        self.range.__enter__()
+        self.events = None
+        if torch.cuda.is_initialized():
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            self.events[0].record()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        host_s = time.perf_counter() - self.t0
+        if self.events is not None:
+            self.events[1].record()
+        self.range.__exit__(*exc)
+        _stack().pop()
+        rec = SpanRecord(self.name, self.parent, host_s)
+        store = _recording()
+        store.spans.append(rec)
+        if self.events is not None:
+            store.pending.append((rec, *self.events))
+
+
+def span(name: str):
+    """A context manager: the block as span ``name``. With no profiler
+    recording it returns at once (it only notes that the next recording
+    starts anew). Under a recording the block is a
+    ``torch.profiler.record_function`` range named ``"rg." + name``, on the
+    profiler's clock, and a :class:`SpanRecord` in the store, with a pair
+    of timing events on the current stream once CUDA is initialised.
+    Put spans around whole layers' calls, not inside per-row loops."""
+    global _stale
+    if not _profiling():
+        _stale = True
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the recording; nothing with no
+    profiler recording."""
+    if not _profiling():
+        return
+    store = _recording()
+    with _lock:
+        store.counts[name] = store.counts.get(name, 0) + n
+
+
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: each collection under a recording is span
+    ``gc`` (host seconds only; it may run on any thread)."""
+    global _stale
+    if phase == "start":
+        if not _profiling():
+            _stale = True
+            return
+        stack = _stack()
+        rng = torch.profiler.record_function(_PREFIX + "gc")
+        rng.__enter__()
+        _local.gc = (stack[-1] if stack else None, rng, time.perf_counter())
+    elif getattr(_local, "gc", None) is not None:
+        parent, rng, t0 = _local.gc
+        _local.gc = None
+        host_s = time.perf_counter() - t0
+        rng.__exit__(None, None, None)
+        _recording().spans.append(SpanRecord("gc", parent, host_s))
+
+
+gc.callbacks.append(_on_gc)
+
+
+def recorded() -> Recording:
+    """The latest recording: its spans in the order they closed, each with
+    its device seconds read (this waits for the device), and its
+    counters."""
+    store = _store
+    if store.pending:
+        pending, store.pending = store.pending, []
+        for rec, start, end in pending:
+            end.synchronize()
+            rec.device_s = start.elapsed_time(end) / 1e3
+    return store
 
 
 def phase_totals() -> dict:
-    """Seconds spent in each phase name so far in this process."""
-    return dict(_PHASE_TIMES)
-
-
-def annotate(name: str | None = None):
-    """Decorator: run the function inside a profiler range named ``name``
-    (its own name by default)."""
-
-    def deco(fn):
-        label = name or fn.__name__
-
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return fn(*args, **kwargs)
-
-        return wrapper
-
-    return deco
+    """Host seconds of the latest recording by span name."""
+    out: dict[str, float] = {}
+    for s in recorded().spans:
+        out[s.name] = out.get(s.name, 0.0) + s.host_s
+    return out
 
 
 def _activities() -> list:

@@ -8,7 +8,9 @@ parameters leaf tensors and lets ``torch.optim.Adam`` update them in place;
 so the best-recall snapshot is a clone, not a reference. A background
 thread makes the next batches (:mod:`.prefetch`) while a step runs; with
 ``RAGRAPH_MEM_ANALYSIS`` set, the device's memory after the first step is
-logged (:func:`.profiling.record_memory_analysis`). optax's ``adam``
+logged (:func:`.profiling.record_memory_analysis`). Under a profiler
+recording a step is span ``step``, holding ``backward`` and ``adam``, and
+the batch's copy is ``to_device`` (:func:`.profiling.span`). optax's ``adam``
 and torch's share their defaults (b1 0.9, b2 0.999, eps 1e-8 added outside
 the root), so the two trainers follow the same trajectory from the same
 batches and masks.
@@ -45,7 +47,7 @@ from ragraph_tpu_torch.train.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from ragraph_tpu_torch.train.metrics import RankingEvaluator
 from ragraph_tpu_torch.train.prefetch import prefetch
-from ragraph_tpu_torch.train.profiling import record_memory_analysis
+from ragraph_tpu_torch.train.profiling import record_memory_analysis, span
 
 
 @dataclasses.dataclass
@@ -170,35 +172,41 @@ class EdgeTrainer:
         """Loss, gradients and the Adam update of one batch of index
         tensors, in place on ``params``. Returns ``(loss, aux)`` as
         detached device scalars."""
-        graph, resources = self._graph_and_resources()
-        optimizer.zero_grad(set_to_none=True)
-        if self.mesh is not None and self.model.rows_independent:
-            batch = shard_batch(self.mesh, batch)
-        loss, aux = self.model.cal_loss(params, batch, generator,
-                                        graph=graph, resources=resources,
-                                        edge_masks=edge_masks)
-        if self.mesh is None:
-            loss.backward()
-        else:
-            # this rank's share of the global mean, then the gradient sums
-            loss = backward_global_mean(self.mesh, loss)
-            leaves = [(n, t) for n, t in param_leaves(params)
-                      if t.requires_grad]
-            sync_grads(self.mesh,
-                       [t for n, t in leaves if not self._is_table(n, t)],
-                       [t for n, t in leaves if self._is_table(n, t)])
-        optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}
+        with span("step"):
+            graph, resources = self._graph_and_resources()
+            optimizer.zero_grad(set_to_none=True)
+            if self.mesh is not None and self.model.rows_independent:
+                batch = shard_batch(self.mesh, batch)
+            loss, aux = self.model.cal_loss(params, batch, generator,
+                                            graph=graph, resources=resources,
+                                            edge_masks=edge_masks)
+            with span("backward"):
+                if self.mesh is None:
+                    loss.backward()
+                else:
+                    # this rank's share of the global mean, then the
+                    # gradient sums
+                    loss = backward_global_mean(self.mesh, loss)
+                    leaves = [(n, t) for n, t in param_leaves(params)
+                              if t.requires_grad]
+                    sync_grads(
+                        self.mesh,
+                        [t for n, t in leaves if not self._is_table(n, t)],
+                        [t for n, t in leaves if self._is_table(n, t)])
+            with span("adam"):
+                optimizer.step()
+            return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def _to_device(self, users, pos, neg):
         """A batch's index arrays on the graph's device; one copy when the
         three have one shape."""
         dev = self.model.graph.device
-        if neg.shape == users.shape:
-            return tuple(torch.from_numpy(np.stack([users, pos, neg]))
-                         .to(dev))
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                     for a in (users, pos, neg))
+        with span("to_device"):
+            if neg.shape == users.shape:
+                return tuple(torch.from_numpy(np.stack([users, pos, neg]))
+                             .to(dev))
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in (users, pos, neg))
 
     # -- the loop ------------------------------------------------------------
 

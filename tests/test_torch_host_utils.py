@@ -209,19 +209,23 @@ def test_log_exceptions_logs_and_reraises(caplog):
 # -- profiling ----------------------------------------------------------------
 
 def test_phase_totals_and_annotate():
-    lines = []
-    before = profiling.phase_totals().get("unit-phase", 0.0)
-    for _ in range(2):
-        with profiling.phase("unit-phase", log=lines.append):
-            sum(range(1000))
-    total = profiling.phase_totals()["unit-phase"] - before
-    assert total > 0 and len(lines) == 2
-    assert lines[1].startswith("[phase] unit-phase: ")
-
-    @profiling.annotate()
-    def double(x):
-        return 2 * x
-    assert double(4) == 8 and double.__name__ == "double"
+    """``phase_totals`` sums the latest recording's spans by name; the old
+    ``phase`` timer and the ``annotate`` decorator are gone (``span`` is
+    the one range)."""
+    with profiling.span("unit-phase"):      # tracing off: records nothing
+        sum(range(1000))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        for _ in range(2):
+            with profiling.span("unit-phase"):
+                sum(range(1000))
+    rec = profiling.recorded()
+    assert [s.name for s in rec.spans] == ["unit-phase"] * 2
+    total = profiling.phase_totals()["unit-phase"]
+    assert total > 0
+    assert total == pytest.approx(sum(s.host_s for s in rec.spans))
+    assert not hasattr(profiling, "annotate")
+    assert not hasattr(profiling, "phase")
 
 
 def test_op_profile_rows_on_cpu():
