@@ -22,7 +22,9 @@ Phases (any failure exits non-zero):
    maximum; the three probe kernels also against their neighbours (J
    within ``TOL_SCORE`` of kernel F's scores and not above kernel D's
    maxima by more, K against kernel A, L exact); E and G bit for bit at
-   every k of ``K_SWEEP`` on ragged, tied and exhausted inputs; kernel H
+   every k of ``K_SWEEP`` on ragged, tied and exhausted inputs; kernel C
+   at an edge finetune step's shape (238,735 queries against as many
+   keys) in one call, bit for bit its calls of 4,096 queries; kernel H
    at its tile, group and supergroup edges, at widths 1 to 512 and past
    2^31 elements, two calls giving the same bits;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
@@ -220,6 +222,8 @@ PRETRAIN_EPOCHS = 2         # of 512 steps
 FT_ROWS = 1 << 15           # a stage's finetune split: 16 steps an epoch
 FT_EPOCHS = 2
 K_PATH = 10                 # EdgeModelConfig().retrieve_num
+C_CELL_ROWS = 238_735       # edge-amazon's nodes: its queries and library
+C_CELL_CHUNK = 4096         # edge-amazon's finetune rag_chunk
 P_MAX = 32                  # bucketed_exact_topk's default capacity
 
 
@@ -1274,6 +1278,43 @@ def c_kernel_checks(gen, dev):
     _, i = fused_cosine_topk(q, keys, 10)
     if not bool((i == torch.arange(10, device=dev)).all()):
         fail(f"C ties: expected indices 0..9, got {i[0].tolist()}")
+    c_one_call_checks(gen, dev)
+
+
+def c_one_call_checks(gen, dev, n=C_CELL_ROWS, chunk=C_CELL_CHUNK):
+    """Kernel C at an edge finetune step's shape (every node's query
+    against a library of as many unit rows, E = 64): one call over all
+    queries equals the calls over ``chunk`` rows each bit for bit, scores
+    and indices, at k = 10 and 20; the device time of each."""
+    import torch
+
+    from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
+    from ragraph_tpu_torch.ops.similarity import l2_normalize
+    q = l2_normalize(torch.randn(n, D, generator=gen, device=dev))
+    keys = l2_normalize(torch.randn(n, D, generator=gen, device=dev))
+
+    def chunked(k):
+        parts = [fused_cosine_topk(q[s:s + chunk], keys, k)
+                 for s in range(0, n, chunk)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+    for k in (K_PATH, 2 * K_PATH):
+        s1, i1 = fused_cosine_topk(q, keys, k)
+        s2, i2 = chunked(k)
+        same = torch.equal(s1, s2) and torch.equal(i1, i2)
+        one_ms = device_ms(lambda: fused_cosine_topk(q, keys, k), reps=3)
+        chunked_ms = device_ms(lambda: chunked(k), reps=3)
+        print(f"  C Q=R={n} E={D} k={k}: one call {one_ms:.3f} ms (device), "
+              f"{-(-n // chunk)} calls of {chunk} {chunked_ms:.3f} ms; "
+              f"{'bit for bit' if same else 'MISMATCH'}", flush=True)
+        print(json.dumps({"c_one_call": {
+            "rows": n, "k": k, "one_call_device_ms": one_ms,
+            "chunked_device_ms": chunked_ms, "chunk": chunk,
+            "bit_for_bit": same}}), flush=True)
+        if not same:
+            fail(f"C at Q=R={n} k={k}: one call differs from the calls of "
+                 f"{chunk}")
+    del q, keys
 
 
 def phase_sass(lib_path):
@@ -3283,10 +3324,10 @@ def phase_training(dev, train_rows, ds, graph):
     ft_params = ft_model.init_params(
         torch.Generator(dev).manual_seed(SEED + 15), pretrained_tables=pre)
     ft_trainer = EdgeTrainer(ft_model, ft_ds, logger=log)
-    n_chunks = -(-(U + I) // min(cfg.rag_chunk or cfg.batch_size, U + I))
+    # a step retrieves for every node in one launch of kernel C
     check_step("finetune", ft_trainer, ft_params, batch, gen,
                {"csr_gather_scale_segsum": 2 * cfg.num_layers,
-                "fused_cosine_topk": n_chunks},
+                "fused_cosine_topk": 1},
                ("user_embedding", "item_embedding", "gating_weight",
                 "gating_bias"))
 
@@ -3299,10 +3340,10 @@ def phase_training(dev, train_rows, ds, graph):
                   in ds.test_user_dict.items()]))
     launches = dict(native.LAUNCHES)
     ft_steps = FT_ROWS // cfg.batch_size
-    # a step retrieves for every node (128 chunks), and so does each
+    # a step retrieves for every node (one launch), and so does each
     # epoch's evaluation; the two for_tune generates and the library build
     # propagate without retrieval
-    want = {"fused_cosine_topk": FT_EPOCHS * (ft_steps + 1) * n_chunks,
+    want = {"fused_cosine_topk": FT_EPOCHS * (ft_steps + 1),
             "csr_gather_scale_segsum": 2 * cfg.num_layers + FT_EPOCHS * (
                 ft_steps * 2 * cfg.num_layers + cfg.num_layers),
             "csr_segment_sum": cfg.num_layers}
@@ -4432,7 +4473,7 @@ def phase_wide_edge(dev, ds, graph):
             pretrained_tables=tables)
         want = {"csr_gather_scale_segsum": a_step}
         if k <= 128:
-            want["fused_cosine_topk"] = n_chunks
+            want["fused_cosine_topk"] = 1
         else:
             want.update(score_matrix=n_chunks, select_topk=n_chunks)
         out[f"finetune_retrieve_num_{k}_losses"], _, total = wide_steps(

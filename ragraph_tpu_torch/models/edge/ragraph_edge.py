@@ -519,7 +519,9 @@ class TemporalLightGCN:
         retrieved values' mean, chunked over the queries at ``rag_chunk``
         (else ``batch_size``) so no ``(N, R)`` score matrix exists.
 
-        Two strategies per chunk. Small ``k``: top-k indices, a
+        Two strategies. Small ``k``: the top-k indices of all queries in
+        one ``cosine_topk`` call (kernel C takes them in one launch; a path
+        that builds scores passes over them by chunk), then per chunk a
         ``(chunk, k, E)`` gather and its mean. Huge ``k`` (koubei/taobao
         vanilla, ``retrieve_num=100000``), where the index tensor and its
         gather would not fit: the k-th score of each row is the threshold,
@@ -575,15 +577,23 @@ class TemporalLightGCN:
             keys_loc = keys_n[lo:lo + rows]
             values_loc = res_values[lo:lo + rows]
         means, counts = [], []
-        for s in range(0, qn, chunk):
-            qc = query_emb[s:s + chunk]
-            if shard_fuse:
-                mean, count = sharded_huge_k_fuse(self.mesh, qc, keys_loc,
-                                                  values_loc, k)
-                means.append(mean)
-                counts.append(count[:, None])
-                continue
-            if big_k:
+        if not big_k:
+            # one retrieval over every query (kernel C takes them in one
+            # launch; the score-matrix paths pass over them by chunk), then
+            # the (chunk, k, E) gathers
+            _, idx = cosine_topk(query_emb, keys_n, k, keys_normalized=True,
+                                 score_dtype=cfg.retrieve_dtype, chunk=chunk)
+            means = [topk_gather(res_values, idx[s:s + chunk]).mean(dim=1)
+                     for s in range(0, qn, chunk)]
+        else:
+            for s in range(0, qn, chunk):
+                qc = query_emb[s:s + chunk]
+                if shard_fuse:
+                    mean, count = sharded_huge_k_fuse(self.mesh, qc, keys_loc,
+                                                      values_loc, k)
+                    means.append(mean)
+                    counts.append(count[:, None])
+                    continue
                 # bf16 keys give bf16 scores and the 16-bit selection
                 scores = l2_normalize(qc).to(keys_n.dtype) @ keys_n.T
                 member = scores >= rowwise_kth_largest(scores, k)
@@ -591,10 +601,6 @@ class TemporalLightGCN:
                 total = member.to(res_values.dtype) @ res_values
                 means.append(total.float() / count.clamp(min=1))
                 counts.append(count)
-                continue
-            _, idx = cosine_topk(qc, keys_n, k, keys_normalized=True,
-                                 score_dtype=cfg.retrieve_dtype)
-            means.append(topk_gather(res_values, idx).mean(dim=1))
         rag_emb = torch.cat(means, dim=0)
         if add_noise:
             # the mean over [top-k, noise rows] as a count-weighted blend

@@ -89,6 +89,14 @@ def _splits(n_q: int, n_r: int, e: int, k: int,
     return bq, -(-n_r // rows_per_split), rows_per_split
 
 
+def runs_kernel_c(queries: torch.Tensor, k: int) -> bool:
+    """Whether :func:`fused_cosine_topk` answers ``queries`` by kernel C
+    itself, which builds no ``(Q, R)`` score matrix: CUDA rows and
+    ``k <= MAX_K``. Its plain version and the selection path do build
+    one."""
+    return queries.device.type == "cuda" and k <= MAX_K
+
+
 def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
                       valid_mask: torch.Tensor | None = None):
     """Exact top-``k`` of already L2-normalised ``queries (Q, E)`` against
@@ -140,6 +148,11 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
         rows_per_split, native.stream_ptr(q))
     native.check(rc, name)
     native.LAUNCHES[name] += 1
+    # here, not at the top: the train package imports the models, which
+    # import this module
+    from ragraph_tpu_torch.train.profiling import count
+    count("retrieve.c_calls")
+    count("retrieve.c_rows", n_q)
     return out_s, out_i
 
 

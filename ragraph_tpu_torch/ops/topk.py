@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 
 from ragraph_tpu_torch.ops.bucket_topk import bucketed_exact_topk
-from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
+from ragraph_tpu_torch.ops.fused_retrieval import (fused_cosine_topk,
+                                                   runs_kernel_c)
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 
 # Library size above which "auto" leaves the exact sort.
@@ -55,7 +56,8 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
                 recall_target: float = 0.99,
                 score_dtype: str = "input",
                 rescore_pad: int = 0,
-                rescore_keys: torch.Tensor | None = None):
+                rescore_keys: torch.Tensor | None = None,
+                chunk: int | None = None):
     """Top-k cosine ``(scores, indices)`` of ``queries (Q, E)`` against
     ``keys (R, E)``, each ``(Q, k)`` (see module doc for ``method``).
 
@@ -67,6 +69,12 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
     ``keys`` table the full-precision rows come from ``rescore_keys``
     (same rows; normalised iff ``keys_normalized``). Without a rescore the
     scores are the quantized approximations.
+
+    ``chunk`` bounds the query rows of one pass on every path that builds
+    a ``(Q, R)`` score matrix: the exact sort, int8 scoring, the bucket
+    tier, and kernel C's plain version or its ``k > MAX_K`` path. Kernel C
+    itself builds none and takes all the queries in one launch, so each
+    query's top-k list climbs through the keys once.
     """
     q = queries if queries_normalized else l2_normalize(queries)
     if rescore_keys is not None and (keys.dtype != torch.int8
@@ -98,18 +106,38 @@ def cosine_topk(queries: torch.Tensor, keys: torch.Tensor, k: int,
             raise ValueError(
                 f"score_dtype='int8' breaks method={method!r}'s exact-"
                 "score contract; use method='approx' or 'exact'")
+    else:
+        if score_dtype != "input":
+            raise ValueError(f"unknown score_dtype {score_dtype!r}")
+        if rescore_pad:
+            raise ValueError("rescore_pad is only meaningful with "
+                             "score_dtype='int8'")
+        if method not in ("bucket", "pallas", "approx", "exact"):
+            raise ValueError(f"unknown method {method!r}")
+    fused = score_dtype == "input" and method in ("pallas", "approx")
+    n_q = q.shape[0]
+    if chunk is None or n_q <= chunk or (fused and runs_kernel_c(q, k)):
+        return _one_pass(q, kk, k, valid_mask, method, score_dtype,
+                         rescore_pad, rescore_keys)
+    if fused:
+        kk = kk.to(torch.bfloat16)   # once, not once a pass
+    parts = [_one_pass(q[s:s + chunk], kk, k, valid_mask, method,
+                       score_dtype, rescore_pad, rescore_keys)
+             for s in range(0, n_q, chunk)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]))
+
+
+def _one_pass(q, kk, k, valid_mask, method, score_dtype, rescore_pad,
+              rescore_keys):
+    """:func:`cosine_topk` of normalised queries ``q`` against ``kk`` by a
+    resolved ``method``, in one call of its path."""
+    if score_dtype == "int8":
         return _int8_topk(q, kk, k, valid_mask, rescore_pad, rescore_keys)
-    if score_dtype != "input":
-        raise ValueError(f"unknown score_dtype {score_dtype!r}")
-    if rescore_pad:
-        raise ValueError("rescore_pad is only meaningful with "
-                         "score_dtype='int8'")
     if method == "bucket":
         return bucketed_exact_topk(q, kk, k, valid_mask=valid_mask)
     if method in ("pallas", "approx"):
         return fused_cosine_topk(q, kk, k, valid_mask=valid_mask)
-    if method != "exact":
-        raise ValueError(f"unknown method {method!r}")
     scores = q.float() @ kk.float().T
     if valid_mask is not None:
         scores = torch.where(valid_mask[None, :].bool(), scores, -torch.inf)

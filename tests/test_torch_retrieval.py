@@ -191,8 +191,8 @@ def test_fused_cosine_topk_plain_ties_in_shuffled_order(seed, k, n_valid):
 SMS = 132   # an H100 SXM's SMs
 
 
-@pytest.mark.parametrize("n_r", [1, 63, 64, 65, 65_536, 262_144])
-@pytest.mark.parametrize("n_q", [1, 384, 2048])
+@pytest.mark.parametrize("n_r", [1, 63, 64, 65, 65_536, 238_735, 262_144])
+@pytest.mark.parametrize("n_q", [1, 384, 2048, 4096, 238_735])
 def test_fused_tile_plan_covers_the_keys(n_q, n_r):
     """Kernel C's tile plan: at most 32 ranges, each a whole number of
     128-key tiles and none empty, that together cover R; a block that fits
@@ -222,6 +222,20 @@ def test_fused_tile_plan_fills_the_card_in_one_wave(sms, n_q, n_r, e, k):
     per_sm = min(256 // bq, tst.SMEM_SM
                  // (tret._smem_bytes(bq, e, k) + tst.SMEM_RESERVED))
     assert sms <= blocks <= per_sm * sms
+
+
+@pytest.mark.parametrize("n_q,k,plan", [
+    (4096, 10, (128, 8, 29_952)),      # one rag_chunk of edge-amazon
+    (238_735, 10, (128, 1, 238_848)),  # all its nodes in one call
+    (4096, 20, (128, 8, 29_952)),      # the k of taobao's finetune
+    (238_735, 20, (128, 1, 238_848)),
+])
+def test_fused_tile_plan_at_an_edge_finetune_step(n_q, k, plan):
+    """At edge-amazon's 238,735-row library: a chunk of 4,096 queries has
+    32 blocks for the card's 264 slots and cuts the keys into 8 ranges;
+    every node's query in one call gives 1,866 blocks and one range, so
+    each query's list climbs through the keys once."""
+    assert tret._splits(n_q, 238_735, 64, k, SMS) == plan
 
 
 @pytest.mark.parametrize("normalized", [True, False])
