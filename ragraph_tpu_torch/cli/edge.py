@@ -206,7 +206,13 @@ def _cfg(args, phase, dataset_name, num_nodes=None):
 def _model_cls(args):
     """``--model`` with its optional ``--dynamic`` / ``--prompt`` cross as a
     class, or the refusal of the JAX CLI."""
-    name, dynamic, prompt = args.model, args.dynamic, args.prompt
+    return model_class(args.model, args.dynamic, args.prompt)
+
+
+def model_class(name: str, dynamic: str | None = None,
+                prompt: str | None = None):
+    """The class that ``--model name`` with ``--dynamic`` / ``--prompt``
+    trains, or the refusal of the JAX CLI."""
     cls = MODELS[name]
     if dynamic is not None:
         if name not in ("SGL", "SimGCL", "MixGCF"):

@@ -23,6 +23,7 @@ from ragraph_tpu_torch.models.edge.ragraph_edge import (EDGE_DATASET_CONFIGS,
                                                         TemporalLightGCN,
                                                         edge_config_for)
 from ragraph_tpu_torch.models.edge.staged import (StageResult,
+                                                  dynamic_stage,
                                                   interpolative_merge,
                                                   staged_dynamic,
                                                   staged_finetune)
@@ -32,8 +33,8 @@ __all__ = ["EDGE_DATASET_CONFIGS", "EdgeGraphArrays", "EdgeModelConfig",
            "LightGCNEdge", "LightGCNPlugin", "MixGCFPlugin", "PluginBase",
            "RAGraphEdge", "Roland", "SGLPlugin", "SimGCLPlugin",
            "StageResult", "TemporalLightGCN", "bpr_loss", "cal_infonce",
-           "edge_config_for", "edge_drop_mask", "ema_merge", "gru_cell",
-           "gru_cell_init", "hash_edge_mask", "interpolative_merge",
+           "dynamic_stage", "edge_config_for", "edge_drop_mask", "ema_merge",
+           "gru_cell", "gru_cell_init", "hash_edge_mask", "interpolative_merge",
            "lightgcn_propagate", "make_dynamic", "make_prompted", "nce_loss",
            "reg_loss_emb", "relative_time_encoding", "staged_dynamic",
            "staged_finetune"]

@@ -13,6 +13,7 @@ from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, gather_scale_segsum,
                                                sorted_segment_sum_grad)
 from ragraph_tpu_torch.ops.segment import scatter_sum, segment_softmax
 from ragraph_tpu_torch.ops.similarity import l2_normalize
+from ragraph_tpu_torch.train.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,14 +103,27 @@ def cal_infonce(view1, view2, temperature: float, b_cos: bool = True,
     return losses.mean()
 
 
-def unique_padded(x: torch.Tensor, size: int):
+def unique_padded(x: torch.Tensor, size: int, count_as: str | None = None):
     """Fixed-size unique: the sorted distinct values of ``x`` cut or padded
-    to ``size``; returns ``(values, valid_mask)`` with padding read as 0."""
-    vals = torch.unique(x)[:size]
-    out = torch.full((size,), -1, dtype=x.dtype, device=x.device)
-    out[:len(vals)] = vals
-    valid = out >= 0
-    return torch.where(valid, out, 0), valid
+    to ``size``; returns ``(values, valid_mask)`` with padding read as 0
+    (and, as padding, any negative value). No value is read on the host:
+    the ``j``-th distinct value is the sorted ``x`` at the first position
+    whose distinct-rank is ``j``. ``count_as`` names a profiler counter
+    that adds the valid rows."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.numel()
+    if n == 0:
+        return (torch.zeros(size, dtype=x.dtype, device=x.device),
+                torch.zeros(size, dtype=torch.bool, device=x.device))
+    first = torch.ones(n, dtype=torch.bool, device=x.device)
+    first[1:] = s[1:] != s[:-1]
+    rank = torch.cumsum(first, 0) - 1
+    at = torch.searchsorted(rank, torch.arange(size, device=x.device))
+    vals = s[at.clamp_max(n - 1)]
+    valid = (at < n) & (vals >= 0)
+    if count_as is not None:
+        count(count_as, valid.sum())
+    return torch.where(valid, vals, 0), valid
 
 
 def reg_loss_emb(user_table, item_table, users, pos_items, neg_items):

@@ -15,6 +15,8 @@ None of them has time encoding or a gate. :func:`gru_cell` is
 ``torch.nn.GRUCell``'s step as a function of a params dict (``w_ih``,
 ``w_hh``, ``b_ih``, ``b_hh``; gate order reset, update, new), so the GRU's
 weights live in the model's params dict under ``gru`` beside the tables.
+Under a profiler recording each GRU step is span ``roland.gru`` and counts
+its rows (``roland.gru_rows``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from ragraph_tpu_torch.models.edge.base import bpr_loss, reg_loss_emb
 from ragraph_tpu_torch.models.edge.ragraph_edge import TemporalLightGCN
+from ragraph_tpu_torch.train.profiling import count, span
 
 
 def gru_cell_init(generator: torch.Generator, size: int,
@@ -44,14 +47,16 @@ def gru_cell_init(generator: torch.Generator, size: int,
 def gru_cell(params: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """One GRU step, gates in torch's order (reset, update, new):
     ``n = tanh(W_n x + b_in + r ∘ (U_n h + b_hn))``."""
-    gi = x @ params["w_ih"].T + params["b_ih"]
-    gh = h @ params["w_hh"].T + params["b_hh"]
-    i_r, i_z, i_n = gi.chunk(3, dim=-1)
-    h_r, h_z, h_n = gh.chunk(3, dim=-1)
-    r = torch.sigmoid(i_r + h_r)
-    z = torch.sigmoid(i_z + h_z)
-    n = torch.tanh(i_n + r * h_n)
-    return (1 - z) * n + z * h
+    count("roland.gru_rows", x.shape[0])
+    with span("roland.gru"):
+        gi = x @ params["w_ih"].T + params["b_ih"]
+        gh = h @ params["w_hh"].T + params["b_hh"]
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1 - z) * n + z * h
 
 
 def ema_merge(current: dict, meta: dict, meta_weight: float = 0.9) -> dict:

@@ -19,6 +19,11 @@ The step's draws are the edge masks (``_drop_masks``, or ``edge_masks``
 given to ``cal_loss``), SimGCL's noise (:meth:`PluginBase._perturb_noise`)
 and MixGCF's mixing weights (:meth:`MixGCFPlugin._mix_weights`); a test
 replaces the two methods to feed both packages the same numbers.
+
+Under a profiler recording the masks and the per-edge weights are span
+``edge_weights`` (as in ``RAGraphEdge``), SGL's two view forwards span
+``sgl.views``, each InfoNCE span ``infonce``, and counter ``infonce.rows``
+adds the valid distinct users and items that the InfoNCE compares.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ragraph_tpu_torch.models.edge.base import (bpr_loss, cal_infonce,
                                                 reg_loss_emb, unique_padded)
 from ragraph_tpu_torch.models.edge.ragraph_edge import TemporalLightGCN
 from ragraph_tpu_torch.nn.gating import learned_gate
+from ragraph_tpu_torch.train.profiling import span
 
 
 class PluginBase(TemporalLightGCN):
@@ -84,8 +90,9 @@ class PluginBase(TemporalLightGCN):
         drawn from ``generator``, after each layer."""
         g = self.graph if graph is None else graph
         cfg = self.cfg
-        weights, w_send, impl = self._edge_weights(
-            g, edge_mask, edge_mask_send, time_scale=time_scale)
+        with span("edge_weights"):
+            weights, w_send, impl = self._edge_weights(
+                g, edge_mask, edge_mask_send, time_scale=time_scale)
         u, it = self._effective_tables(params, generator, training)
         all_emb = self._gate(params, torch.cat([u, it], dim=0), generator,
                              training)
@@ -135,11 +142,15 @@ class SGLPlugin(PluginBase):
         cfg = self.cfg
         g = self.graph if graph is None else graph
         keep = 1.0 - cfg.edge_dropout
-        if edge_masks is None:
-            edge_masks = (self._drop_masks(generator, g, keep),
-                          self._drop_masks(generator, g, 0.9),
-                          self._drop_masks(generator, g, 0.9))
-        (mask, mask_s), (v1, v1_s), (v2, v2_s) = edge_masks
+        with span("edge_weights"):
+            if edge_masks is None:
+                edge_masks = (self._drop_masks(generator, g, keep),
+                              self._drop_masks(generator, g, 0.9),
+                              self._drop_masks(generator, g, 0.9))
+            (mask, mask_s), (v1, v1_s), (v2, v2_s) = edge_masks
+            m1, m2 = mask & v1, mask & v2
+            m1_s = mask_s & v1_s if mask_s is not None else None
+            m2_s = mask_s & v2_s if mask_s is not None else None
 
         # time_scale = 1 / keep keeps the static-time half of the weights
         # expectation-preserving under dropout
@@ -153,23 +164,24 @@ class SGLPlugin(PluginBase):
         reg = cfg.weight_decay * reg_loss_emb(u_t, i_t, users, pos_items,
                                               neg_items)
 
-        m1, m2 = mask & v1, mask & v2
-        m1_s = mask_s & v1_s if mask_s is not None else None
-        m2_s = mask_s & v2_s if mask_s is not None else None
         view_scale = 1.0 / (keep * 0.9)
-        u1, i1 = self.forward(params, generator=generator, training=True,
-                              edge_mask=m1, edge_mask_send=m1_s, graph=g,
-                              time_scale=view_scale)
-        u2, i2 = self.forward(params, generator=generator, training=True,
-                              edge_mask=m2, edge_mask_send=m2_s, graph=g,
-                              time_scale=view_scale)
+        with span("sgl.views"):
+            u1, i1 = self.forward(params, generator=generator,
+                                  training=True, edge_mask=m1,
+                                  edge_mask_send=m1_s, graph=g,
+                                  time_scale=view_scale)
+            u2, i2 = self.forward(params, generator=generator,
+                                  training=True, edge_mask=m2,
+                                  edge_mask_send=m2_s, graph=g,
+                                  time_scale=view_scale)
 
-        uu, um = unique_padded(users, users.shape[0])
-        iu, im = unique_padded(pos_items, pos_items.shape[0])
+        uu, um = unique_padded(users, users.shape[0], "infonce.rows")
+        iu, im = unique_padded(pos_items, pos_items.shape[0], "infonce.rows")
         view1 = torch.cat([u1[uu], i1[iu]], dim=0)
         view2 = torch.cat([u2[uu], i2[iu]], dim=0)
         vmask = torch.cat([um, im], dim=0)
-        cl = cfg.lbd * cal_infonce(view1, view2, cfg.temp, mask=vmask)
+        with span("infonce"):
+            cl = cfg.lbd * cal_infonce(view1, view2, cfg.temp, mask=vmask)
         return rec + reg + cl, {"rec_loss": rec, "reg_loss": reg,
                                 "cl_loss": cl}
 
@@ -187,8 +199,9 @@ class SimGCLPlugin(PluginBase):
         users, pos_items, neg_items = (t.long() for t in batch)
         cfg = self.cfg
         g = self.graph if graph is None else graph
-        mask, mask_s = (edge_masks if edge_masks is not None
-                        else self._drop_masks(generator, g, 0.5))
+        with span("edge_weights"):
+            mask, mask_s = (edge_masks if edge_masks is not None
+                            else self._drop_masks(generator, g, 0.5))
 
         u_t, i_t = self._effective_tables(params, None, False)
         reg = cfg.weight_decay * reg_loss_emb(u_t, i_t, users, pos_items,
@@ -198,10 +211,11 @@ class SimGCLPlugin(PluginBase):
                               perturb=True, graph=g, time_scale=2.0)
                  for _ in range(2)]
         (uv1, iv1), (uv2, iv2) = views
-        uu, um = unique_padded(users, users.shape[0])
-        iu, im = unique_padded(pos_items, pos_items.shape[0])
-        cl = cfg.lbd * (cal_infonce(uv1[uu], uv2[uu], 0.2, mask=um)
-                        + cal_infonce(iv1[iu], iv2[iu], 0.2, mask=im))
+        uu, um = unique_padded(users, users.shape[0], "infonce.rows")
+        iu, im = unique_padded(pos_items, pos_items.shape[0], "infonce.rows")
+        with span("infonce"):
+            cl = cfg.lbd * (cal_infonce(uv1[uu], uv2[uu], 0.2, mask=um)
+                            + cal_infonce(iv1[iu], iv2[iu], 0.2, mask=im))
 
         if self.bpr_in_cal_loss:
             # the crosses: a plain forward on the same dropped subgraph
@@ -254,8 +268,9 @@ class MixGCFPlugin(PluginBase):
         cfg = self.cfg
         g = self.graph if graph is None else graph
         keep = 1.0 - cfg.edge_dropout
-        mask, mask_s = (edge_masks if edge_masks is not None
-                        else self._drop_masks(generator, g, keep))
+        with span("edge_weights"):
+            mask, mask_s = (edge_masks if edge_masks is not None
+                            else self._drop_masks(generator, g, keep))
         layers = self._propagated(params, generator, True, mask,
                                   return_layers=True, graph=g,
                                   edge_mask_send=mask_s,

@@ -18,7 +18,8 @@ For each temporal stage ``s`` over ``test_1..test_N``:
 
 :func:`staged_dynamic` is the loop of the dynamic baselines (ROLAND,
 EvolveGCN-H/-O and their plugin crosses): per stage the model is rebuilt on
-the stage graph from the previous stage's tables and GRU, ROLAND against
+the stage graph from the previous stage's tables and GRU
+(:func:`dynamic_stage`), ROLAND against
 its meta model's layers and EvolveGCN-H against the previous stage's
 embeddings.
 
@@ -52,6 +53,7 @@ from ragraph_tpu_torch.ops.similarity import l2_normalize
 from ragraph_tpu_torch.parallel import is_writer
 from ragraph_tpu_torch.parallel.mesh import axis_size
 from ragraph_tpu_torch.train.checkpoint import to_host
+from ragraph_tpu_torch.train.profiling import span
 from ragraph_tpu_torch.train.trainer import EdgeTrainer
 
 
@@ -190,6 +192,51 @@ def _tree_to(tree, dev: torch.device):
     return torch.from_numpy(np.array(_np(tree), dtype=np.float32)).to(dev)
 
 
+def dynamic_stage(model_cls, cfg_factory: Callable, ft_dataset,
+                  tables: dict, generator: torch.Generator, *, mode: str,
+                  device: str | torch.device = "cuda", meta_params=None,
+                  last_emb=None, mesh=None):
+    """One stage's model and starting params in :func:`staged_dynamic`:
+    ``model_cls`` built from ``cfg_factory("finetune")`` on the graph of
+    ``ft_dataset`` (receiver-range shards where ``mesh`` has an ``idx``
+    axis over 1), params from ``tables`` (numpy arrays or tensors) and
+    ``generator``, then every entry that ``meta_params`` (the previous
+    stage's params, or None before the first stage) shares with them, the
+    GRU's among them. ``mode="roland"`` sets the meta layers: the plain
+    propagation of these params (``forward_lgn``, or for a cross its
+    ``propagated_plain``), detached, as span ``roland.meta``;
+    ``"evolvegcn_h"`` evolves against ``last_emb`` (the tables when None).
+    Returns ``(model, params)``, what :class:`EdgeTrainer` takes."""
+    dev = resolve_device(device)
+    model = model_cls(cfg_factory("finetune"),
+                      _arrays_fn(mesh, dev)(ft_dataset), phase="finetune",
+                      mesh=mesh)
+    params = model.init_params(generator, pretrained_tables=(
+        _tree_to(tables["user_embedding"], dev),
+        _tree_to(tables["item_embedding"], dev)))
+    if meta_params is not None:
+        # the GRU and the (EMA-merged) tables carry across stages
+        params = {**params,
+                  **{k: meta_params[k] for k in meta_params
+                     if k in params and k != "gru"},
+                  "gru": meta_params["gru"]}
+
+    if mode == "roland":
+        with torch.no_grad(), span("roland.meta"):
+            if hasattr(model, "forward_lgn"):
+                meta_layers = model.forward_lgn(params, return_layers=True)
+            else:       # a cross: its layers with the fusion off
+                meta_layers = model.propagated_plain(params)
+        model.set_meta_layers(meta_layers)
+    elif mode == "evolvegcn_h":
+        if last_emb is None:
+            last_emb = torch.cat([_tree_to(tables["user_embedding"], dev),
+                                  _tree_to(tables["item_embedding"], dev)],
+                                 dim=0)
+        model.set_last_emb(last_emb)
+    return model, params
+
+
 def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
                    pretrain_tables: dict, cfg_factory: Callable, seed: int,
                    model_cls, *, device: str | torch.device = "cuda",
@@ -218,7 +265,6 @@ def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
     CPU.
     """
     dev = resolve_device(device)
-    arrays = _arrays_fn(mesh, dev)
     base_ds = load_edge_dataset(
         pretrain_rows, val_rows if val_rows is not None else stage_rows[0],
         hour_interval=hour_interval)
@@ -254,32 +300,10 @@ def staged_dynamic(pretrain_rows, finetune_rows, stage_rows: list,
             hour_interval=hour_interval, num_users=num_users,
             num_items=num_items, phase="finetune",
             user_hist=all_rows[:stage], pad_edges_to=ft_bucket)
-        model = model_cls(cfg_factory("finetune"), arrays(ft_dataset),
-                          phase="finetune", mesh=mesh)
-        params = model.init_params(gen(1), pretrained_tables=(
-            _tree_to(tables["user_embedding"], dev),
-            _tree_to(tables["item_embedding"], dev)))
-        if meta_params is not None:
-            # the GRU and the (EMA-merged) tables carry across stages
-            params = {**params,
-                      **{k: meta_params[k] for k in meta_params
-                         if k in params and k != "gru"},
-                      "gru": meta_params["gru"]}
-
-        if mode == "roland":
-            with torch.no_grad():
-                if hasattr(model, "forward_lgn"):
-                    meta_layers = model.forward_lgn(params,
-                                                    return_layers=True)
-                else:       # a cross: its layers with the fusion off
-                    meta_layers = model.propagated_plain(params)
-            model.set_meta_layers(meta_layers)
-        elif mode == "evolvegcn_h":
-            if last_emb is None:
-                last_emb = torch.cat(
-                    [_tree_to(tables["user_embedding"], dev),
-                     _tree_to(tables["item_embedding"], dev)], dim=0)
-            model.set_last_emb(last_emb)
+        model, params = dynamic_stage(
+            model_cls, cfg_factory, ft_dataset, tables, gen(1), mode=mode,
+            device=dev, meta_params=meta_params, last_emb=last_emb,
+            mesh=mesh)
 
         logger(f"--- dynamic stage {stage} ({mode})")
         trainer = EdgeTrainer(model, ft_dataset, logger=logger, mesh=mesh)

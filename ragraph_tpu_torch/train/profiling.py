@@ -126,9 +126,10 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add ``n`` to counter ``name`` of the recording; nothing with no
-    profiler recording."""
+    profiler recording. ``n`` may be a 0-d tensor on the device, read
+    only when the recording is (:func:`recorded`)."""
     if not _profiling():
         return
     store = _recording()
@@ -162,13 +163,17 @@ gc.callbacks.append(_on_gc)
 def recorded() -> Recording:
     """The latest recording: its spans in the order they closed, each with
     its device seconds read (this waits for the device), and its
-    counters."""
+    counters, those counted on the device read as ints."""
     store = _store
     if store.pending:
         pending, store.pending = store.pending, []
         for rec, start, end in pending:
             end.synchronize()
             rec.device_s = start.elapsed_time(end) / 1e3
+    with _lock:
+        for name, n in store.counts.items():
+            if isinstance(n, torch.Tensor):
+                store.counts[name] = int(n)
     return store
 
 

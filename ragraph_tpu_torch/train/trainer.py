@@ -94,6 +94,16 @@ def param_leaves(params: dict) -> list:
     return out
 
 
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` on ``dev``: through pinned memory and a copy that does not
+    block the host on CUDA (the caching host allocator keeps the pinned
+    block until the copy is done), a plain copy elsewhere."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 class EdgeTrainer:
     """Train a :class:`TemporalLightGCN`-family model on an EdgeDataset."""
 
@@ -199,13 +209,14 @@ class EdgeTrainer:
 
     def _to_device(self, users, pos, neg):
         """A batch's index arrays on the graph's device; one copy when the
-        three have one shape."""
+        three have one shape. On CUDA the copy leaves from pinned memory
+        without blocking, so the host need not wait for the device to
+        finish the previous step before it queues this one."""
         dev = self.model.graph.device
         with span("to_device"):
             if neg.shape == users.shape:
-                return tuple(torch.from_numpy(np.stack([users, pos, neg]))
-                             .to(dev))
-            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                return tuple(_upload(np.stack([users, pos, neg]), dev))
+            return tuple(_upload(np.ascontiguousarray(a), dev)
                          for a in (users, pos, neg))
 
     # -- the loop ------------------------------------------------------------
