@@ -1250,26 +1250,44 @@ def phase_kernel_checks(rng, dev, graph, probes):
 
 def c_kernel_checks(gen, dev):
     """Kernel C at ragged shapes (Q = 1 and 3, R = 3, E = 8, 136 and 256,
-    k = 1 and 128, valid masks) and on exact ties."""
+    k = 1 and 128, valid masks), at the edges of its pipeline (fewer key
+    tiles than ring stages: R = 3, 129, 257; Q not a multiple of the
+    block's queries, in blocks of 64 and of 128; k = 16 and 17, the switch
+    between the lane and the warp insert; a valid mask that empties whole
+    tiles; E = 512 in chunks) and on exact ties. At every shape its scores
+    are bit for bit the score matrix's at the same indices."""
     import torch
 
     from ragraph_tpu_torch.ops.fused_retrieval import fused_cosine_topk
     from ragraph_tpu_torch.ops.similarity import l2_normalize
+    big = 17_001   # 133 blocks of 128 queries: the plan takes blocks of 128
     for q_len, r_len, e, k, n_valid in (
             (1, 1000, 64, 10, None), (77, 1000, 64, 1, None),
             (130, 4097, 64, 50, None), (65, 3000, 64, 128, None),
             (33, 1000, 64, 10, 400), (9, 500, 64, 10, 5),
             (3, 3, 64, 10, None), (70, 1234, 8, 10, None),
-            (40, 900, 136, 50, None), (20, 700, 256, 128, 300)):
+            (40, 900, 136, 50, None), (20, 700, 256, 128, 300),
+            (5, 129, 64, 10, None), (300, 257, 64, 16, None),
+            (70, 257, 136, 17, None), (200, 2000, 64, 16, "tiles"),
+            (200, 2000, 64, 17, "tiles"), (50, 1500, 512, 10, None),
+            (7, 600, 1000, 20, "tiles"), (big, 3000, 64, 10, "tiles"),
+            (big, 1000, 64, 17, None), (big, 1000, 256, 20, None),
+            (big, 600, 512, 10, None)):
         q = l2_normalize(torch.randn(q_len, e, generator=gen, device=dev))
         keys = l2_normalize(torch.randn(r_len, e, generator=gen, device=dev))
         valid = None
-        if n_valid is not None:
+        if n_valid == "tiles":
+            # tiles 1-3 and the last 100 keys empty, half of the rest
+            valid = torch.rand(r_len, generator=gen, device=dev) < 0.5
+            valid[128:512] = False
+            valid[-100:] = False
+        elif n_valid is not None:
             valid = torch.zeros(r_len, dtype=torch.bool, device=dev)
             valid[torch.randperm(r_len, generator=gen,
                                  device=dev)[:n_valid]] = True
-        check_topk(f"C Q={q_len} R={r_len} E={e} k={k} valid={n_valid}",
-                   q, keys, k, valid)
+        name = f"C Q={q_len} R={r_len} E={e} k={k} valid={n_valid}"
+        check_topk(name, q, keys, k, valid)
+        c_equals_score_matrix(name, q, keys, k, valid)
     # exact ties: duplicated keys must come out lowest index first
     keys = l2_normalize(torch.randn(1, 64, generator=gen, device=dev))
     keys = keys.repeat(300, 1)
@@ -1279,6 +1297,25 @@ def c_kernel_checks(gen, dev):
     if not bool((i == torch.arange(10, device=dev)).all()):
         fail(f"C ties: expected indices 0..9, got {i[0].tolist()}")
     c_one_call_checks(gen, dev)
+
+
+def c_equals_score_matrix(name, q, keys, k, valid=None):
+    """Kernel C's scores bit for bit the score matrix's
+    (``score_tile.score_matrix``, kernel D's tile) at C's indices, for
+    every live entry: the two take the same k16 steps in the same order."""
+    import torch
+
+    from ragraph_tpu_torch.ops.fused_retrieval import NEG_INF, \
+        fused_cosine_topk
+    from ragraph_tpu_torch.ops.score_tile import bf16_rows, score_matrix
+    s, i = fused_cosine_topk(q, keys, k, valid_mask=valid)
+    sm = score_matrix(bf16_rows(keys), bf16_rows(q), valid)
+    live = s > NEG_INF
+    same = torch.equal(s[live], sm.gather(1, i.long())[live])
+    print(f"  {name}: scores {'bit for bit' if same else 'MISMATCH'} the "
+          f"score matrix's", flush=True)
+    if not same:
+        fail(f"{name}: scores differ from the score matrix's")
 
 
 def c_one_call_checks(gen, dev, n=C_CELL_ROWS, chunk=C_CELL_CHUNK):

@@ -1,6 +1,5 @@
 """Kernels C and D and the score matrix, the three users of the score
-tile's key walk (``csrc/rg_mma.cuh::TileWalk``), by device time beside
-their bound.
+tile (``csrc/rg_mma.cuh``), by device time beside their bound.
 
     python -m ragraph_tpu_torch.bench.score_tile [--device cpu --small]
         [--out FILE]
@@ -8,11 +7,15 @@ their bound.
 At the main path's refresh chunk (2,048 queries against 262,144 keys) and
 the widths 64 (the edge model's), 100 (rows padded to 104) and 512 (four
 chunks of 128 columns): C at k = 10 and D at each, the score matrix of C's
-k > 128 path at 100. The inputs are L2-normalised bf16 rows drawn from
-``--seed``. For each call: the device's time alone (``timing.device_ms``,
-under ``ms``) and the bound (the larger of the bytes moved at 3.35 TB/s
-and the products at the 989 TFLOP/s bf16 tensor-core rate). To compare two
-checkouts, run the script in each in turns.
+k > 128 path at 100. Then C at its other paths' shapes: the graph level
+(16 queries against a 65,536-row store of width 256 that holds 1,500 valid
+rows, k = 4) and an edge finetune step (238,735 queries against as many
+keys, width 64, k = 10 and 20). The inputs are L2-normalised bf16 rows
+drawn from ``--seed``. For each call: the device's time alone
+(``timing.device_ms``, under ``ms``) and the bound (the larger of the
+bytes moved at 3.35 TB/s and the products at the 989 TFLOP/s bf16
+tensor-core rate). To compare two checkouts, run the script in each in
+turns.
 
 The last line is one JSON object with the card's name and power limit.
 """
@@ -69,6 +72,27 @@ def run(device, small: bool, seed: int = 0) -> dict:
         del q, keys
         if cuda:
             torch.cuda.empty_cache()
+    # C at the graph level's shape and at an edge finetune step's
+    (g_q, g_r, g_e, fill), (f_q, f_r, f_e) = (
+        ((4, 512, 16, 100), (1000, 1000, 64)) if small
+        else ((16, 65_536, 256, 1_500), (238_735, 238_735, 64)))
+    gq = l2_normalize(torch.randn(g_q, g_e, generator=gen, device=device))
+    gk = l2_normalize(torch.randn(g_r, g_e, generator=gen, device=device))
+    gq, gk = gq.bfloat16(), gk.bfloat16()
+    valid = torch.arange(g_r, device=device) < fill
+    calls = {f"C_graph_E{g_e}_k4": (
+        lambda: fused_cosine_topk(gq, gk, 4, valid), g_q, g_r, g_e, 32 * g_q)}
+    fq = l2_normalize(torch.randn(f_q, f_e, generator=gen, device=device))
+    fk = l2_normalize(torch.randn(f_r, f_e, generator=gen, device=device))
+    fq, fk = fq.bfloat16(), fk.bfloat16()
+    for k in (K, 2 * K):
+        calls[f"C_finetune_E{f_e}_k{k}"] = (
+            lambda k=k: fused_cosine_topk(fq, fk, k), f_q, f_r, f_e,
+            8 * f_q * k)
+    for name, (fn, a, b, w, out_bytes) in calls.items():
+        times[name] = (timing.device_ms(fn, 10) if cuda
+                       else timing.timed_ms(fn, 2, 1, device))
+        bounds[name] = bound_ms(a, b, w, out_bytes)
     return {"bench": "score_tile", "device": timing.device_record(device),
             "Q": n_q, "R": n_r, "widths": list(widths), "k": K,
             "bound_ms": bounds, timing.times_key(device): times,

@@ -32,8 +32,9 @@
 // takes those steps for every kernel (C, D, F and the score matrix), so
 // the score of a pair is the same sequence of k16 steps in all of them (D
 // and F stay bitwise equal, and C's scores are the score matrix's);
-// TileWalk is the two-stage ring of key tiles that C, D and the score
-// matrix share.
+// TileWalk is the two-stage ring of key tiles that D and the score matrix
+// share (kernel C stages its tiles by TMA, in fused_retrieval.cu, and
+// takes the same k16 steps in the same order).
 
 #pragma once
 
@@ -257,7 +258,7 @@ __device__ __forceinline__ void mma_row(float (&d)[kAcc], int e, int a_rows,
   }
 }
 
-// The walk of kernels C and D and of the score matrix: kBQ query rows from
+// The walk of kernel D and of the score matrix: kBQ query rows from
 // q0 against key tiles t = 0 .. n_tiles - 1 of kTileN rows from k0, in a
 // ring of ring_bytes(kBQ, e) bytes of shared memory, the next piece's
 // copies in flight while the current one multiplies. kChunk false (rows of

@@ -30,14 +30,19 @@ import torch
 
 from ragraph_tpu_torch import native
 from ragraph_tpu_torch.ops.score_tile import (
-    LANE, SMEM_ALIGN, SMEM_BLOCK, SMEM_RESERVED, SMEM_SM, bf16_rows,
-    device_memory, pass_rows, ring_bytes, score_matrix)
+    CHUNK_E, LANE, SMEM_ALIGN, SMEM_RESERVED, SMEM_SM, bf16_rows,
+    device_memory, pass_rows, score_matrix)
 from ragraph_tpu_torch.ops.select_topk import select_topk
 
 NEG_INF = -3.0e38
 MAX_K = 128   # the running lists live in shared memory; a larger k takes
               # the selection family
 _MAX_SPLITS = 32          # one per lane of the merge launch's warp
+BLOCK_Q = 64              # queries a block of kernel C: one warpgroup
+BLOCK_THREADS = 256       # its consumer and producer warpgroups
+BLOCKS_PER_SM = 2         # its __launch_bounds__
+REGS_SM = 65_536          # 32-bit registers of one H100 SM
+WARP_ROWS = 16            # queries of a consumer warp
 
 
 def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
@@ -59,11 +64,32 @@ def fused_cosine_topk_plain(queries: torch.Tensor, keys_n: torch.Tensor,
     return s, i.to(torch.int32)
 
 
-def _smem_bytes(bq: int, e: int, k: int) -> int:
+def _stages(e: int) -> int:
+    """Stages of kernel C's ring (``ring_stages`` in
+    ``csrc/fused_retrieval.cu``): 5 key tiles of rows of at most 64
+    values, 2 up to 128, both under a resident query tile; 3 (query, key)
+    pairs of 128-column pieces past that."""
+    return 5 if e <= 64 else 2 if e <= CHUNK_E else 3
+
+
+def _tile_bytes(rows: int, w: int) -> int:
+    """Bytes of a tile of ``rows`` rows of width ``w``: 64-column swizzle
+    atoms of the width padded to 16 (``rg_mma.cuh::tile_bytes``)."""
+    return rows * 128 * -(-(-(-w // 16) * 16) // 64)
+
+
+def _smem_bytes(e: int, k: int) -> int:
     """Shared memory of one block of kernel C (``smem_bytes`` in
-    ``csrc/fused_retrieval.cu``): the alignment slack, the ring of tiles
-    (:func:`score_tile.ring_bytes`) and the ``(bq, k)`` lists."""
-    return SMEM_ALIGN + ring_bytes(bq, e) + 8 * bq * k
+    ``csrc/fused_retrieval.cu``): the alignment slack, the resident query
+    tile (none past 128 columns), the ring's stages of 128-column pieces,
+    the ``(64, k)`` lists in rows of ``k`` rounded up to 4 and two
+    mbarriers a stage."""
+    w = min(e, CHUNK_E)
+    wide = e > CHUNK_E
+    stage = (_tile_bytes(BLOCK_Q, w) if wide else 0) + _tile_bytes(LANE, w)
+    stages = _stages(e)
+    return (SMEM_ALIGN + (0 if wide else _tile_bytes(BLOCK_Q, e))
+            + stages * stage + 8 * BLOCK_Q * -(-k // 4) * 4 + 16 * stages)
 
 
 def _splits(n_q: int, n_r: int, e: int, k: int,
@@ -71,22 +97,18 @@ def _splits(n_q: int, n_r: int, e: int, k: int,
     """Kernel C's tile plan on a card with ``sms`` SMs: ``(queries per
     block, ranges, keys per range)``.
 
-    A block of 128 queries (two warpgroups) shares each key tile where that
-    fits shared memory and still gives every SM a block; else 64. R is cut
-    into at most 32 ranges of whole 128-key tiles, as many as the SMs hold
-    resident beside the query blocks (two blocks of 128 queries or four of
-    64 per SM, fewer where shared memory runs out), so the launch is one
-    wave."""
+    Blocks of 64 queries, two an SM (one where shared memory runs out). R
+    is cut into at most 32 ranges of whole 128-key tiles, as many as the
+    SMs hold resident beside the query blocks, so that a launch of few
+    queries is one wave that reaches every SM. Many queries take one
+    range: each query's list climbs through the keys once."""
     n_tiles = -(-n_r // LANE)
-    max_splits = min(_MAX_SPLITS, n_tiles)
-    bq = 128 if (_smem_bytes(128, e, k) <= SMEM_BLOCK
-                 and -(-n_q // 128) * max_splits >= sms) else 64
-    q_blocks = -(-n_q // bq)
-    per_sm = min(256 // bq,
-                 SMEM_SM // (_smem_bytes(bq, e, k) + SMEM_RESERVED))
-    splits = max(1, min(max_splits, per_sm * sms // q_blocks))
+    q_blocks = -(-n_q // BLOCK_Q)
+    per_sm = min(BLOCKS_PER_SM,
+                 SMEM_SM // (_smem_bytes(e, k) + SMEM_RESERVED))
+    splits = max(1, min(_MAX_SPLITS, n_tiles, per_sm * sms // q_blocks))
     rows_per_split = -(-n_tiles // splits) * LANE
-    return bq, -(-n_r // rows_per_split), rows_per_split
+    return BLOCK_Q, -(-n_r // rows_per_split), rows_per_split
 
 
 def runs_kernel_c(queries: torch.Tensor, k: int) -> bool:
@@ -139,7 +161,9 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
                          device=q.device)
     part_i = torch.empty((n_q, splits, k), dtype=torch.int32,
                          device=q.device)
-    bound = torch.empty(n_q, dtype=torch.int32, device=q.device)
+    # the count of warp-tiles whose vote passed (int64), then the shared
+    # bound (Q int32); the kernel's one memset zeroes both
+    bound = torch.empty(2 + n_q, dtype=torch.int32, device=q.device)
     rc = native.lib().rg_fused_cosine_topk(
         q.data_ptr(), kk.data_ptr(),
         valid.data_ptr() if valid is not None else None,
@@ -153,6 +177,8 @@ def fused_cosine_topk(queries: torch.Tensor, keys_n: torch.Tensor, k: int,
     from ragraph_tpu_torch.train.profiling import count
     count("retrieve.c_calls")
     count("retrieve.c_rows", n_q)
+    count("retrieve.c_vote_passes", bound[:2].view(torch.int64)[0])
+    count("retrieve.c_warp_tiles", -(-n_q // WARP_ROWS) * -(-n_r // LANE))
     return out_s, out_i
 
 

@@ -47,7 +47,7 @@ def bf16_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def ring_bytes(bq: int, e: int) -> int:
-    """Bytes of the ring of tiles of kernels C and D and the score matrix
+    """Bytes of the ring of tiles of kernel D and the score matrix
     for ``bq`` queries at width ``e`` (``ring_bytes`` in ``rg_mma.cuh``):
     tiles in 64-column swizzle atoms of the width padded to 16, the
     resident query tile and two key tiles, or for rows wider than 256 two
@@ -118,8 +118,7 @@ def tile_plan(n_q: int, n_r: int, e: int, n_sms: int) -> tuple[int, int, int]:
     """The tile plan of kernel D and of the score matrix on a card with
     ``n_sms`` SMs: ``(queries per block, ranges, buckets per range)``.
 
-    Kernel C's plan (``fused_retrieval._splits``) without the top-k lists:
-    a block of 128 queries (two warpgroups) shares each bucket's key tile
+    A block of 128 queries (two warpgroups) shares each bucket's key tile
     where that still gives every SM a block, else 64. The buckets are cut
     into as many ranges as the SMs hold resident beside the query blocks
     (two blocks of 128 queries or four of 64 per SM, fewer where shared

@@ -195,16 +195,16 @@ SMS = 132   # an H100 SXM's SMs
 @pytest.mark.parametrize("n_q", [1, 384, 2048, 4096, 238_735])
 def test_fused_tile_plan_covers_the_keys(n_q, n_r):
     """Kernel C's tile plan: at most 32 ranges, each a whole number of
-    128-key tiles and none empty, that together cover R; a block that fits
-    shared memory."""
+    128-key tiles and none empty, that together cover R; a block of 64
+    queries whose ring, lists and barriers fit shared memory."""
     for e, k in ((64, 10), (256, 4), (8, 1), (136, 50), (256, 128),
                  (264, 10), (512, 4), (1000, 128)):
         bq, splits, rows = tret._splits(n_q, n_r, e, k, SMS)
-        assert bq in (64, 128)
+        assert bq == tret.BLOCK_Q == 64
         assert rows > 0 and rows % tst.LANE == 0
         assert 1 <= splits <= 32
         assert (splits - 1) * rows < n_r <= splits * rows
-        assert tret._smem_bytes(bq, e, k) <= tst.SMEM_BLOCK
+        assert tret._smem_bytes(e, k) <= tst.SMEM_BLOCK
 
 
 @pytest.mark.parametrize("sms", [SMS, 114])
@@ -214,28 +214,56 @@ def test_fused_tile_plan_covers_the_keys(n_q, n_r):
     (384, 65_536, 512, 4),      # a node retrieve at --hidden 512
 ])
 def test_fused_tile_plan_fills_the_card_in_one_wave(sms, n_q, n_r, e, k):
-    """At the paths' shapes the blocks reach every SM and all fit resident
-    at once (two of 128 queries or four of 64 per SM, fewer where shared
-    memory runs out)."""
+    """At the paths' shapes every SM gets a block and all blocks are
+    resident at once; the registers and shared memory of the blocks an SM
+    holds fit it (a block is 256 threads, 128 registers each at launch,
+    two an SM where shared memory lets them)."""
     bq, splits, _ = tret._splits(n_q, n_r, e, k, sms)
     blocks = -(-n_q // bq) * splits
-    per_sm = min(256 // bq, tst.SMEM_SM
-                 // (tret._smem_bytes(bq, e, k) + tst.SMEM_RESERVED))
+    regs = tret.REGS_SM // (tret.BLOCK_THREADS * tret.BLOCKS_PER_SM)
+    per_sm = min(tret.BLOCKS_PER_SM, tst.SMEM_SM
+                 // (tret._smem_bytes(e, k) + tst.SMEM_RESERVED))
     assert sms <= blocks <= per_sm * sms
+    assert per_sm >= 1 and regs == 128
+    assert per_sm * tret.BLOCK_THREADS * regs <= tret.REGS_SM
+    assert per_sm * (tret._smem_bytes(e, k) + tst.SMEM_RESERVED) \
+        <= tst.SMEM_SM
 
 
 @pytest.mark.parametrize("n_q,k,plan", [
-    (4096, 10, (128, 8, 29_952)),      # one rag_chunk of edge-amazon
-    (238_735, 10, (128, 1, 238_848)),  # all its nodes in one call
-    (4096, 20, (128, 8, 29_952)),      # the k of taobao's finetune
-    (238_735, 20, (128, 1, 238_848)),
+    (4096, 10, (64, 4, 59_776)),       # one rag_chunk of edge-amazon
+    (238_735, 10, (64, 1, 238_848)),   # all its nodes in one call
+    (4096, 20, (64, 4, 59_776)),       # the k of taobao's finetune
+    (238_735, 20, (64, 1, 238_848)),
 ])
 def test_fused_tile_plan_at_an_edge_finetune_step(n_q, k, plan):
     """At edge-amazon's 238,735-row library: a chunk of 4,096 queries has
-    32 blocks for the card's 264 slots and cuts the keys into 8 ranges;
-    every node's query in one call gives 1,866 blocks and one range, so
-    each query's list climbs through the keys once."""
+    64 blocks for the card's 264 slots (two an SM) and cuts the keys into 4
+    ranges; every node's query in one call gives 3,731 blocks and one
+    range, so each query's list climbs through the keys once."""
     assert tret._splits(n_q, 238_735, 64, k, SMS) == plan
+
+
+def test_c_kernel_names_are_the_benchmarks():
+    """``csrc/fused_retrieval.cu`` defines kernels named for each of kernel
+    C's entries in the benchmark's ``RETRIEVAL_KERNELS`` (the substrings
+    ``retrieval_ms`` reads a device trace by), and every other entry names
+    a kernel of another source."""
+    import pathlib
+    import re
+
+    from perfbench.metrics.counts import RETRIEVAL_KERNELS
+    csrc = pathlib.Path(tret.__file__).resolve().parents[1] / "csrc"
+    kernels = {src.name: re.findall(
+        r"__global__\s+void\s+"
+        r"(?:__launch_bounds__\((?:[^()]|\([^()]*\))*\)\s+)?(\w+)\s*\(",
+        src.read_text()) for src in csrc.glob("*.cu")}
+    c_names = ("topk_partial_kernel", "topk_merge_kernel")
+    assert set(c_names) <= set(RETRIEVAL_KERNELS)
+    for name in c_names:
+        assert any(name in k for k in kernels["fused_retrieval.cu"]), name
+    for name in RETRIEVAL_KERNELS:
+        assert any(name in k for ks in kernels.values() for k in ks), name
 
 
 @pytest.mark.parametrize("normalized", [True, False])
