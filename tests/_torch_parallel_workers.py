@@ -18,6 +18,7 @@ import subprocess
 import sys
 import time
 
+import _torch_threads  # in a rank: the threads run_world chose for it
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,7 +34,7 @@ def run_world(world: int, cases: list, tmp_dir: str, timeout: float = 300,
         pickle.dump(cases, f)
     init = os.path.join(tmp_dir, f"{tag}_pg")
     env = {**os.environ, "PYTHONPATH": REPO + os.pathsep
-           + os.environ.get("PYTHONPATH", ""), "OMP_NUM_THREADS": "1"}
+           + os.environ.get("PYTHONPATH", ""), **_torch_threads.env(world)}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)
@@ -441,9 +442,7 @@ def main() -> int:
     rank, world, init, cases_path, out_dir, tag = (
         int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
         sys.argv[5], sys.argv[6])
-    import torch
     import torch.distributed as dist
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}",
                             rank=rank, world_size=world)
     with open(cases_path, "rb") as f:

@@ -4,6 +4,7 @@ the cell's limits, the two faults of the mechanism read past them, the GRU's
 roofline count worked by hand, and the new per-layer metrics read from the
 program's spans (a made-up recording, none, and a tiny traced run)."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import pytest
 import torch
 

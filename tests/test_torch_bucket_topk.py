@@ -3,6 +3,7 @@ Pallas kernels in interpret mode). On CPU tensors the port's wrappers run
 their plain versions; the glue between the phases is the code the card
 runs too."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ long segments (``ragraph_tpu/ops/pallas_segment.py:145-148``), against the
 size of the prefix; here 1e-3 of the largest output. Port against port: 0.
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

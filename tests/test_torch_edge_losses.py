@@ -6,6 +6,7 @@ replaced by data or checked as a distribution.
 Tolerance ``ATOL``: f32 sums of a few thousand terms in another order.
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

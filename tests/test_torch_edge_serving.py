@@ -17,6 +17,7 @@ nothing (``num_inverse_sample=0``) or pass the same draws to both sides.
 import dataclasses
 import functools
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

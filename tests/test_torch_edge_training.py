@@ -18,6 +18,7 @@ can flip a rounding.
 import dataclasses
 import functools
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

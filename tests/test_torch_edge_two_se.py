@@ -8,6 +8,7 @@ reference; both far above the random ranking's recall."""
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 
 from ragraph_tpu.cli import edge as j_cli

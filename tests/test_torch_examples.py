@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import pytest
 import torch
 

@@ -30,6 +30,7 @@ differ, where the query's code is zero).
 import dataclasses
 import functools
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ too: the fewshot CLI falls back, the node CLI raises."""
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 import torch

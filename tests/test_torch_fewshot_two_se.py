@@ -13,6 +13,7 @@ tasks' SE."""
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 from test_torch_edge_two_se import within_two_se
 

@@ -17,6 +17,7 @@ parameters after ten Adam steps at lr 1e-2.
 import dataclasses
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 

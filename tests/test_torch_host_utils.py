@@ -12,6 +12,7 @@ import os
 import pickle
 import random
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -1,6 +1,7 @@
 """The port's int8 scoring tier of ``cosine_topk`` against the JAX package,
 and ``retrieve_dtype="int8"`` through ``generate``."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ and hand them to the port. Keys are normalised once, on the JAX side, and
 given to both packages (bf16 keys as the bf16 values of those rows).
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import jax.random as jr

@@ -14,6 +14,7 @@ the retrieved rows are the same rows.
 
 import dataclasses
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

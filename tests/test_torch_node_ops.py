@@ -15,6 +15,7 @@ held bit for bit.
 import dataclasses
 import os
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

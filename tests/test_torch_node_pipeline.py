@@ -16,6 +16,7 @@ import dataclasses
 import functools
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ CLI as the reference; both well above chance (33%)."""
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 from test_torch_edge_two_se import within_two_se

@@ -17,6 +17,7 @@ threshold, the sharded library and the gathered rows bit for bit.
 import concurrent.futures as cf
 import dataclasses
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

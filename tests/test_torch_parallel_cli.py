@@ -19,6 +19,7 @@ import pickle
 import subprocess
 import sys
 
+import _torch_threads
 import numpy as np
 import pytest
 
@@ -37,7 +38,8 @@ FEWSHOT = NODE + ["--retrieve-num", "3", "--library-capacity", "16384"]
 
 
 def _env():
-    env = {**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
+    # the module's torchrun jobs run two at a time, four ranks each
+    env = {**os.environ, "PYTHONPATH": REPO, **_torch_threads.env(2 * 4)}
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         env.pop(k, None)

@@ -10,6 +10,7 @@ a segment's terms directly on the port's side and by a prefix difference on
 the JAX side: the same bound.
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

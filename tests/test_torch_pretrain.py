@@ -15,6 +15,7 @@ gradients; selections (masks, memberships, permutations, tuples) exactly.
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

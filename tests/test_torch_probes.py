@@ -22,6 +22,7 @@ import importlib.util
 import json
 import pathlib
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ the model and the evaluator do their work."""
 
 import gc
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 (JAX Pallas kernel in interpret mode), the exact ``cosine_topk`` and the
 cosine similarity helpers."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

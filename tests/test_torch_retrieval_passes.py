@@ -3,6 +3,7 @@ C's route takes all queries in one ``cosine_topk`` call and gives what the
 calls of ``rag_chunk`` rows each gave, bit for bit; the paths that build a
 ``(Q, R)`` score matrix still pass over at most ``rag_chunk`` query rows."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import pytest
 import torch
 

@@ -3,6 +3,7 @@ the score matrix that kernel C's and the bucket path's ``k > 128``
 selection reads, held to the JAX package's bf16 product and to kernel D's
 plain version, and the bound on one pass's scratch."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels are held against those versions on the card by ``chip_smoke.py``.
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ here that version is held to the JAX package's row top-k (its Pallas kernel
 in interpret mode) and to the extraction plain versions of E and G, which
 the card's selections are held to in ``chip_smoke.py``."""
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

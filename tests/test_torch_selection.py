@@ -3,6 +3,7 @@ against the JAX package."""
 
 import dataclasses
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

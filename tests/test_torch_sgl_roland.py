@@ -12,6 +12,7 @@ operands to bfloat16, so the two differ only in the order of their float32
 sums.
 """
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ guarantees (a resumed run equals an uninterrupted one bit for bit).
 import json
 import pickle
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

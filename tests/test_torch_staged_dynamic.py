@@ -17,6 +17,7 @@ import functools
 import json
 import pickle
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

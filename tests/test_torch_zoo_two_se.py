@@ -9,6 +9,7 @@ reference. A file of its own, so that ``--dist loadfile`` runs it beside
 
 import json
 
+import _torch_threads  # noqa: F401  (torch's share of the cores)
 import numpy as np
 
 from ragraph_tpu.cli import edge as j_cli
