@@ -26,7 +26,10 @@ Phases (any failure exits non-zero):
    at an edge finetune step's shape (238,735 queries against as many
    keys) in one call, bit for bit its calls of 4,096 queries; kernel H
    at its tile, group and supergroup edges, at widths 1 to 512 and past
-   2^31 elements, two calls giving the same bits;
+   2^31 elements, two calls giving the same bits; the edge-dropout kernel
+   ``rg_edge_weights`` bit for bit the composition it replaces (the int64
+   hash, the fold, ``torch.where``) at edge-taobao's 17,590,808 edges and
+   at ragged sizes, timed beside it and beside its bytes bound;
 3. drive the RAGraph-edge serving path at serving scale (U = I = 131,072,
    2^20 interactions, D = 64, 3 layers): ``generate`` -> library ->
    ``generate`` with RAG -> recall/ndcg@20 -> ``recommend_from``; count each
@@ -1245,7 +1248,88 @@ def phase_kernel_checks(rng, dev, graph, probes):
                          (129, 2000, 256, False)):
         segsum_checks(rng, dev, n, e, d, hub)
     c_kernel_checks(gen, dev)
+    edge_weights_checks(dev)
     return errs
+
+
+EW_EDGES = 17_590_808       # edge-taobao's directed edges
+EW_RAGGED = (1, 31, (1 << 20) + 3)
+EW_BYTES_PER_EDGE = 28      # norms, time softmax, weight a order; send_perm
+
+
+def edge_weights_checks(dev):
+    """``rg_edge_weights`` against the composition it replaces
+    (``edge_weights_plain`` on the card: the int64 hash, the fold and
+    ``torch.where``), bit for bit, at edge-taobao's 17,590,808 edges and at
+    ragged sizes: both orders and receiver order alone, one and two draws,
+    no time and the fold at two coefficients, and inputs 4 bytes off the
+    16-byte boundary (its 4-byte path). Then its device time beside the
+    composition's and its bytes bound, 28 bytes a directed edge read or
+    written once."""
+    import torch
+
+    from ragraph_tpu_torch.ops.edge_weights import (edge_weights,
+                                                    edge_weights_plain)
+    gen = torch.Generator(dev).manual_seed(SEED + 23)
+    salts = torch.randint(0, 1 << 32, (2,), generator=gen, device=dev)
+    cases = mismatched = 0
+    timing = None
+    for n in EW_RAGGED + (EW_EDGES,):
+        for offset in ((0, 1) if n == 31 else (0,)):
+            def rand(scale=1.0):
+                return (torch.rand(n + offset, generator=gen, device=dev)
+                        * scale)[offset:]
+            en, en_s = rand(), rand()
+            tn, tn_s = rand(1e-3), rand(1e-3)
+            perm = torch.cat([torch.zeros(offset, dtype=torch.int32,
+                                          device=dev),
+                              torch.randperm(n, generator=gen, device=dev)
+                              .int()])[offset:]
+            for n_draws in (1, 2):
+                draws = [(salts[0], 0.5), (salts[1], 0.9)][:n_draws]
+                for c in (None, 1.0, 0.5 / (0.5 * 0.9)):
+                    for send in (True, False):
+                        args = (draws, en, tn, c) + (
+                            (perm, en_s, tn_s) if send else ())
+                        got = edge_weights(*args)
+                        want = edge_weights_plain(*args)
+                        for g_, w_ in zip(got, want):
+                            if (g_ is None) != (w_ is None):
+                                fail(f"rg_edge_weights n={n}: sender order "
+                                     f"{g_ is None} against {w_ is None}")
+                            if g_ is not None:
+                                mismatched += int((g_.view(torch.int32)
+                                                   != w_.view(torch.int32))
+                                                  .sum())
+                        cases += 1
+            if n == EW_EDGES:
+                draws = [(salts[0], 0.5)]
+                args = (draws, en, tn, 1.0, perm, en_s, tn_s)
+                two = ([(salts[0], 0.5), (salts[1], 0.9)], en, tn,
+                       0.5 / (0.5 * 0.9), perm, en_s, tn_s)
+                bound = EW_BYTES_PER_EDGE * n / HBM_BYTES_PER_MS
+                dev_ms = device_ms(lambda: edge_weights(*args))
+                timing = {
+                    "edges": n, "bound_ms": bound,
+                    "device_ms": dev_ms, "share": bound / dev_ms,
+                    "ms": cuda_ms(lambda: edge_weights(*args)),
+                    "two_draws_device_ms": device_ms(
+                        lambda: edge_weights(*two)),
+                    "composition_device_ms": device_ms(
+                        lambda: edge_weights_plain(*args), reps=5),
+                    "composition_ms": cuda_ms(
+                        lambda: edge_weights_plain(*args), reps=5),
+                    "two_draws_composition_device_ms": device_ms(
+                        lambda: edge_weights_plain(*two), reps=5)}
+            del en, en_s, tn, tn_s, perm
+    torch.cuda.synchronize()
+    print(f"  rg_edge_weights: {cases} cases at n = "
+          f"{EW_RAGGED + (EW_EDGES,)}, bit mismatches {mismatched} "
+          f"{'ok' if mismatched == 0 else 'MISMATCH'}", flush=True)
+    if mismatched:
+        fail("rg_edge_weights disagrees with the composition it replaces")
+    print(json.dumps({"edge_weights_timing": timing}), flush=True)
+    return timing
 
 
 def c_kernel_checks(gen, dev):
@@ -3318,7 +3402,8 @@ def phase_training(dev, train_rows, ds, graph):
                                   np.random.default_rng(SEED + 12)))
     batch = tuple(torch.from_numpy(a).to(dev) for a in first)
     check_step("pretrain", trainer, params, batch, gen,
-               {"csr_gather_scale_segsum": 2 * cfg.num_layers},
+               {"csr_gather_scale_segsum": 2 * cfg.num_layers,
+                "edge_weights": 1},
                ("user_embedding", "item_embedding"))
 
     native.reset_launches()
@@ -3364,7 +3449,7 @@ def phase_training(dev, train_rows, ds, graph):
     # a step retrieves for every node in one launch of kernel C
     check_step("finetune", ft_trainer, ft_params, batch, gen,
                {"csr_gather_scale_segsum": 2 * cfg.num_layers,
-                "fused_cosine_topk": 1},
+                "fused_cosine_topk": 1, "edge_weights": 1},
                ("user_embedding", "item_embedding", "gating_weight",
                 "gating_bias"))
 
@@ -4488,7 +4573,7 @@ def phase_wide_edge(dev, ds, graph):
 
     out["pretrain_losses"], leaves, total = wide_steps(
         "pretrain", EdgeTrainer(model, ds, logger=lambda *_: None), params,
-        batches, gen, {"csr_gather_scale_segsum": a_step},
+        batches, gen, {"csr_gather_scale_segsum": a_step, "edge_weights": 1},
         ("user_embedding", "item_embedding"))
     count(total)
     tables = tuple(leaves[k].detach() for k in ("user_embedding",
@@ -4508,7 +4593,7 @@ def phase_wide_edge(dev, ds, graph):
         ft_params = ft_model.init_params(
             torch.Generator(dev).manual_seed(SEED + 64),
             pretrained_tables=tables)
-        want = {"csr_gather_scale_segsum": a_step}
+        want = {"csr_gather_scale_segsum": a_step, "edge_weights": 1}
         if k <= 128:
             want["fused_cosine_topk"] = 1
         else:

@@ -1,7 +1,8 @@
 """Shared pieces of the edge (recommendation) model family (counterpart of
 ``ragraph_tpu/models/edge/base.py``): the config, the losses, the edge
-dropout masks, the relative edge-time encoding and the LightGCN
-propagation."""
+dropout draws (:class:`EdgeDraws`; the hash itself lives beside its kernel
+in ``ops/edge_weights.py``), the relative edge-time encoding and the
+LightGCN propagation."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import torch
 
 from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, gather_scale_segsum,
                                                sorted_segment_sum_grad)
+from ragraph_tpu_torch.ops.edge_weights import (  # noqa: F401
+    hash_edge_mask, keep_mask)
 from ragraph_tpu_torch.ops.segment import scatter_sum, segment_softmax
 from ragraph_tpu_torch.ops.similarity import l2_normalize
 from ragraph_tpu_torch.train.profiling import count
@@ -150,42 +153,40 @@ def edge_drop_mask(generator: torch.Generator, num_edges: int,
                       device=device) < keep_rate
 
 
-_M32 = 0xFFFFFFFF
+@dataclasses.dataclass(frozen=True)
+class EdgeDraws:
+    """A step's edge dropout as the draws that define it, before any mask
+    exists: an edge is kept where :func:`hash_edge_mask` keeps it for every
+    ``(salt, keep rate)`` of ``draws`` (none keeps every edge), its id being
+    its position in receiver order and ``send_perm`` in sender order.
 
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)``. torch has no
-    uint32 multiply, and the int64 product would pass 2**63, so the high
-    half of ``x`` is multiplied apart and only its low 16 bits kept."""
-    lo = (x & 0xFFFF) * c
-    hi = (((x >> 16) * c) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def hash_edge_mask(salt, edge_ids: torch.Tensor, keep_rate: float):
-    """Keep mask from a stateless integer hash of the edge id: the JAX
-    package's uint32 arithmetic (a murmur3-style finalizer) in int64 masked
-    to 32 bits, bit for bit the same mask for the same ``salt``.
-
-    A pure elementwise function of ``(salt, edge id)``, so the same mask
-    exists in sender order by hashing ``graph.send_perm``, without a
-    gather. ``salt`` is an int or a 0-d integer tensor; its low 32 bits
-    count.
+    ``&`` ANDs two records (SGL's views). :meth:`masks`, or unpacking, gives
+    the ``(receiver order, sender order)`` bool masks for code that takes
+    masks; ``TemporalLightGCN._edge_weights`` turns a record into weights
+    without them where it can (``ops/edge_weights.py``).
     """
-    if keep_rate >= 1.0:
-        return torch.ones(edge_ids.shape, dtype=torch.bool,
-                          device=edge_ids.device)
-    if isinstance(salt, torch.Tensor):
-        salt = salt.to(edge_ids.device, torch.int64)
-    x = (_mul32(edge_ids.to(torch.int64) & _M32, 0x9E3779B9)
-         + (salt & _M32)) & _M32
-    x = _mul32(x ^ (x >> 16), 0x85EBCA6B)
-    x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
-    x = x ^ (x >> 16)
-    # clamp: a keep_rate in (1 - 2**-33, 1) would round to 2**32, which as a
-    # uint32 threshold wraps to 0 and drops every edge instead of none
-    thresh = min(round(keep_rate * 4294967296.0), 4294967295)
-    return x < thresh
+
+    draws: tuple
+    send_perm: torch.Tensor
+
+    def masks(self):
+        ids = torch.arange(self.send_perm.shape[0],
+                           device=self.send_perm.device)
+        return keep_mask(self.draws, ids), keep_mask(self.draws,
+                                                     self.send_perm)
+
+    def __iter__(self):
+        return iter(self.masks())
+
+    def __and__(self, other: "EdgeDraws") -> "EdgeDraws":
+        return dataclasses.replace(self, draws=self.draws + other.draws)
+
+
+def mask_pair(masks):
+    """``(edge_mask, edge_mask_send)`` of a step's dropout: an
+    :class:`EdgeDraws` travels whole as the first, with ``None``; a pair of
+    masks (the sender one possibly ``None``) as given."""
+    return (masks, None) if isinstance(masks, EdgeDraws) else tuple(masks)
 
 
 def relative_time_encoding(edge_times: torch.Tensor,

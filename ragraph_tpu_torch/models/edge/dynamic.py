@@ -25,7 +25,8 @@ import math
 
 import torch
 
-from ragraph_tpu_torch.models.edge.base import bpr_loss, reg_loss_emb
+from ragraph_tpu_torch.models.edge.base import (bpr_loss, mask_pair,
+                                                reg_loss_emb)
 from ragraph_tpu_torch.models.edge.ragraph_edge import TemporalLightGCN
 from ragraph_tpu_torch.train.profiling import count, span
 
@@ -173,9 +174,9 @@ class DynamicBase(TemporalLightGCN):
         (``edge_masks``, or drawn from ``generator``)."""
         g = self.graph if graph is None else graph
         users, pos_items, neg_items = (t.long() for t in batch)
-        mask, mask_send = (edge_masks if edge_masks is not None
-                           else self._drop_masks(
-                               generator, g, 1.0 - self.cfg.edge_dropout))
+        mask, mask_send = mask_pair(
+            edge_masks if edge_masks is not None
+            else self._drop_masks(generator, g, 1.0 - self.cfg.edge_dropout))
         user_emb, item_emb = self.forward(params, edge_mask=mask,
                                           edge_mask_send=mask_send, graph=g)
         rec = bpr_loss(user_emb[users], item_emb[pos_items],

@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 
 from ragraph_tpu_torch.models.edge.base import (bpr_loss, cal_infonce,
-                                                reg_loss_emb, unique_padded)
+                                                mask_pair, reg_loss_emb,
+                                                unique_padded)
 from ragraph_tpu_torch.models.edge.ragraph_edge import TemporalLightGCN
 from ragraph_tpu_torch.nn.gating import learned_gate
 from ragraph_tpu_torch.train.profiling import span
@@ -147,7 +148,8 @@ class SGLPlugin(PluginBase):
                 edge_masks = (self._drop_masks(generator, g, keep),
                               self._drop_masks(generator, g, 0.9),
                               self._drop_masks(generator, g, 0.9))
-            (mask, mask_s), (v1, v1_s), (v2, v2_s) = edge_masks
+            (mask, mask_s), (v1, v1_s), (v2, v2_s) = (mask_pair(m)
+                                                      for m in edge_masks)
             m1, m2 = mask & v1, mask & v2
             m1_s = mask_s & v1_s if mask_s is not None else None
             m2_s = mask_s & v2_s if mask_s is not None else None
@@ -200,8 +202,8 @@ class SimGCLPlugin(PluginBase):
         cfg = self.cfg
         g = self.graph if graph is None else graph
         with span("edge_weights"):
-            mask, mask_s = (edge_masks if edge_masks is not None
-                            else self._drop_masks(generator, g, 0.5))
+            mask, mask_s = mask_pair(edge_masks if edge_masks is not None
+                                     else self._drop_masks(generator, g, 0.5))
 
         u_t, i_t = self._effective_tables(params, None, False)
         reg = cfg.weight_decay * reg_loss_emb(u_t, i_t, users, pos_items,
@@ -269,8 +271,8 @@ class MixGCFPlugin(PluginBase):
         g = self.graph if graph is None else graph
         keep = 1.0 - cfg.edge_dropout
         with span("edge_weights"):
-            mask, mask_s = (edge_masks if edge_masks is not None
-                            else self._drop_masks(generator, g, keep))
+            mask, mask_s = mask_pair(edge_masks if edge_masks is not None
+                                     else self._drop_masks(generator, g, keep))
         layers = self._propagated(params, generator, True, mask,
                                   return_layers=True, graph=g,
                                   edge_mask_send=mask_s,

@@ -46,10 +46,9 @@ import torch
 
 from ragraph_tpu_torch.data.edgelist import EdgeDataset
 from ragraph_tpu_torch.device import resolve_device
-from ragraph_tpu_torch.models.edge.base import (EdgeModelConfig, bpr_loss,
-                                                edge_drop_mask,
-                                                hash_edge_mask,
-                                                lightgcn_propagate,
+from ragraph_tpu_torch.models.edge.base import (EdgeDraws, EdgeModelConfig,
+                                                bpr_loss, edge_drop_mask,
+                                                lightgcn_propagate, mask_pair,
                                                 reg_loss_emb,
                                                 relative_time_encoding)
 from ragraph_tpu_torch.nn.gating import learned_gate, random_gate
@@ -57,6 +56,7 @@ from ragraph_tpu_torch.nn.lora import LoRAFactors, apply_lora, svd_init
 from ragraph_tpu_torch.ops.csr_segment import (WalkPlan, gather_scale_segsum,
                                                sorted_segment_sum_grad,
                                                walk_plan)
+from ragraph_tpu_torch.ops.edge_weights import edge_weights
 from ragraph_tpu_torch.ops.pagerank import inverse_sample_prob_edges
 from ragraph_tpu_torch.ops.segment import scatter_sum
 from ragraph_tpu_torch.ops.similarity import l2_normalize
@@ -64,7 +64,7 @@ from ragraph_tpu_torch.ops.selection import rowwise_kth_largest
 from ragraph_tpu_torch.ops.topk import (cosine_topk, quantize_keys_i8,
                                         topk_gather)
 from ragraph_tpu_torch.rag.augmentation import augment_features
-from ragraph_tpu_torch.train.profiling import span
+from ragraph_tpu_torch.train.profiling import count, span
 
 # _fuse_rag leaves the (chunk, k, E) index gather for the k-th-score
 # threshold and a membership matmul when k * emb_size exceeds this, as in
@@ -281,13 +281,22 @@ class TemporalLightGCN:
 
         Static time mode folds in the precomputed time softmax; otherwise
         the softmax is recomputed over the live edges, which exists only in
-        receiver order and so leaves the fused backend.
+        receiver order and so leaves the fused backend. ``edge_mask`` may
+        be a step's :class:`EdgeDraws`: on CUDA, with the static fold or no
+        time, one launch of ``rg_edge_weights`` hashes and weights both
+        orders (counter ``edge_weights.fused_edges`` adds the edges it
+        weighs, per order); elsewhere the draws become bool masks first.
         """
         cfg = self.cfg
         impl = self._segsum_impl(g)
         static_time = (cfg.time_mode == "static"
                        and g.time_norm is not None
                        and max_time_step is None)
+        if isinstance(edge_mask, EdgeDraws):
+            if g.device.type == "cuda" and (static_time or not self.use_time):
+                return (*self._drawn_weights(g, edge_mask, impl, time_scale),
+                        impl)
+            edge_mask, edge_mask_send = edge_mask.masks()
         downgrade = ("sorted" if g.device.type == "cuda"
                      and g.recv_indptr is not None else "scatter")
         if impl == "fused" and (edge_mask is not None
@@ -322,6 +331,22 @@ class TemporalLightGCN:
                 weights = weights * 0.5 + tn * 0.5
         return weights, w_send, impl
 
+    def _drawn_weights(self, g, draws: EdgeDraws, impl: str,
+                       time_scale: float):
+        """``(weights, w_send)`` of a step's draws in one kernel launch,
+        the static time fold in where the model uses time, the sender order
+        where ``impl`` is ``"fused"``."""
+        fold = self.use_time
+        send = impl == "fused"
+        out = edge_weights(
+            draws.draws, g.edge_norm, g.time_norm if fold else None,
+            0.5 * time_scale if fold else None,
+            send_perm=g.send_perm if send else None,
+            edge_norm_send=g.edge_norm_send if send else None,
+            time_norm_send=g.time_norm_send if fold and send else None)
+        count("edge_weights.fused_edges", g.num_edges * (2 if send else 1))
+        return out
+
     @staticmethod
     def _draw_salt(generator: torch.Generator) -> torch.Tensor:
         """The step's dropout salt: a 0-d int64 tensor in ``[0, 2**32)`` on
@@ -330,13 +355,16 @@ class TemporalLightGCN:
                              device=generator.device)
 
     def _drop_masks(self, generator, g, keep_rate: float):
-        """Edge-keep mask in receiver order, and in sender order when the
-        sender arrays exist, which keeps the fused propagation usable."""
+        """The step's edge dropout. Where the sender arrays exist, an
+        :class:`EdgeDraws` of one salt from ``generator`` (none at a keep
+        rate of 1), whose hash gives the same mask in both orders and keeps
+        the fused propagation usable; unpacked it is the ``(receiver order,
+        sender order)`` pair of bool masks. Else a Bernoulli mask in
+        receiver order and ``None``."""
         if g.send_perm is not None:
-            salt = 0 if keep_rate >= 1.0 else self._draw_salt(generator)
-            ids = torch.arange(g.num_edges, device=g.device)
-            return (hash_edge_mask(salt, ids, keep_rate),
-                    hash_edge_mask(salt, g.send_perm, keep_rate))
+            draws = (() if keep_rate >= 1.0
+                     else ((self._draw_salt(generator), keep_rate),))
+            return EdgeDraws(draws, g.send_perm)
         return edge_drop_mask(generator, g.num_edges, keep_rate,
                               g.device), None
 
@@ -675,7 +703,7 @@ class TemporalLightGCN:
         if edge_masks is None:
             with span("edge_weights"):
                 edge_masks = self._drop_masks(generator, g, keep)
-        mask, mask_send = edge_masks
+        mask, mask_send = mask_pair(edge_masks)
         user_emb, item_emb = self.forward(
             params, generator=generator, training=True, edge_mask=mask,
             edge_mask_send=mask_send, time_scale=1.0 / keep, graph=g,

@@ -81,6 +81,11 @@ _SIGNATURES = {
                                _I, _P, _P, _L, _P, _L, _P, _P],
     # col, table, out, blocks, slots per block, table rows, d, stream
     "rg_onehot_gather": [_P, _P, _P, _I, _I, _L, _I, _P],
+    # edge_norm, time_norm, their sender-order copies, send_perm, two salt
+    # tensors, two thresholds, draws, time coefficient, out, out in sender
+    # order, edges, stream
+    "rg_edge_weights": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I,
+                        ctypes.c_float, _P, _P, _L, _P],
 }
 
 
